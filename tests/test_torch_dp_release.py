@@ -1,0 +1,71 @@
+"""Port ``dp_release`` (plain version and the autograd Function on the CPU)
+against the JAX package's Pallas kernel in interpret mode, and its gradient
+against ``jax.vjp`` of the JAX reference.
+
+Tolerance: 1e-5 absolute and relative. The row norm is a float32 sum in
+another order, and the scale is ``clip / sqrt(max(n2, 1e-24))`` here against
+``clip * rsqrt(max(n2, 1e-24))`` in the JAX reference, which agree within an
+ulp or two of the scale.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.dp_release.kernel import dp_release_pallas
+from repro.kernels.dp_release.ref import dp_release_ref as jax_dp_release_ref
+from repro_torch.kernels.dp_release import ops
+from repro_torch.kernels.dp_release.ref import dp_release_ref
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+# (shape, clip_norm, sigma): clip active (row norms ~ sqrt(F) >> clip) and
+# inactive (clip far above every norm), with and without noise; the last is
+# the COVID-CT cut at batch 2 (F = 32*32*16)
+CASES = [((4, 8, 8, 8), 1.0, 0.0), ((4, 8, 8, 8), 1.0, 0.7), ((3, 5, 7), 1e4, 0.0),
+         ((3, 5, 7), 1e4, 2.5), ((2, 32, 32, 16), 1.0, 9.689610525210778)]
+
+
+def _inputs(seed, shape):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape, np.float32), rng.standard_normal(shape, np.float32))
+
+
+@pytest.mark.parametrize("shape,clip,sigma", CASES)
+def test_forward_matches_pallas(shape, clip, sigma):
+    x, nz = _inputs(0, shape)
+    want = np.asarray(dp_release_pallas(jnp.asarray(x), jnp.asarray(nz), clip_norm=clip,
+                                        sigma=sigma, interpret=True))
+    before = ops.launches
+    tx, tn = torch.from_numpy(x), torch.from_numpy(nz)
+    plain = dp_release_ref(tx, tn, clip_norm=clip, sigma=sigma)
+    fused = ops.dp_release_with_noise(tx, tn, clip_norm=clip, sigma=sigma, use_kernel=True)
+    assert ops.launches == before  # a CPU tensor never reaches the kernel
+    np.testing.assert_allclose(plain.numpy(), want, **TOL)
+    np.testing.assert_allclose(fused.numpy(), want, **TOL)
+    norms = np.linalg.norm(plain.numpy().reshape(shape[0], -1), axis=1)
+    if sigma == 0.0:  # the clip itself: no row above clip_norm
+        assert np.all(norms <= clip * (1 + 1e-6))
+
+
+@pytest.mark.parametrize("shape,clip,sigma", [CASES[1], CASES[3]])
+def test_gradient_matches_jax_vjp(shape, clip, sigma):
+    x, nz = _inputs(1, shape)
+    g = np.random.default_rng(2).standard_normal(shape, np.float32)
+    _, vjp = jax.vjp(lambda xx: jax_dp_release_ref(xx, jnp.asarray(nz), clip_norm=clip,
+                                                   sigma=sigma), jnp.asarray(x))
+    (want,) = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_()
+    tn = torch.from_numpy(nz).requires_grad_()
+    ops.DPRelease.apply(tx, tn, clip, sigma).backward(torch.from_numpy(g))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want), **TOL)
+    assert tn.grad is None  # the noise is a constant of the release
+
+
+def test_no_noise_means_no_perturbation_and_bad_device_raises():
+    x, nz = (torch.from_numpy(a) for a in _inputs(3, (2, 6)))
+    clipped = ops.dp_release_with_noise(x, None, clip_norm=0.5, sigma=3.0, use_kernel=True)
+    np.testing.assert_allclose(clipped.numpy(),
+                               dp_release_ref(x, None, clip_norm=0.5).numpy(), **TOL)
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        ops.dp_release_forward(x.to("meta"), nz.to("meta"), 1.0, 1.0)

@@ -1,0 +1,43 @@
+"""The port stands alone: every module of ``repro_torch`` and
+``chip_smoke.py`` imports with ``jax`` and ``repro`` blocked, and the smoke
+script refuses to run without a CUDA card."""
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ENV = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+
+BLOCKED_IMPORTS = r"""
+import importlib, pkgutil, sys
+for name in ("jax", "jaxlib", "repro"):
+    sys.modules[name] = None  # any import of them, or below them, now fails
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+loaded = [m for m, v in sys.modules.items() if v is not None
+          and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not loaded, loaded
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_repro():
+    out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS, REPO], env=ENV,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20  # every module was walked
+
+
+def test_chip_smoke_refuses_without_a_card():
+    import torch
+
+    if torch.cuda.is_available():
+        return  # nothing to refuse here; the script runs on the card instead
+    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")], env=ENV,
+                         capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
