@@ -11,9 +11,17 @@ inputs, stages 16/32/64/128/256, dense 64 -> 1, cut after stage 1) for three
 hospitals, with the privacy kernel in the client stage and a clipped
 ``DPConfig`` through the release kernel. It then serves the same trace on
 the plain path and compares, profiles the device's busy share over one
-serve, checks the card's answers against the CPU on a small trace, times
-each kernel against its plain version, and prints one JSON object per
-phase. The last line is ``{"ok": true, "device": ...}``.
+serve, checks the card's answers against the CPU on a small trace, and times
+each kernel against its plain version.
+
+Then it drives the second path, the LM kernels' public entry points
+``flash_attention`` and ``selective_scan``, at the full widths of the repo's
+LM configs (llama3.2-1b, mixtral-8x7b with its sliding window,
+hubert-xlarge bidirectional with a ragged S, falcon-mamba-7b's scan), holds
+each output against its plain version on the card and a small case against
+the CPU, and times the two timed cases. It prints one JSON object per phase
+and a ``kernels`` line with every ported kernel. The last line is
+``{"ok": true, "device": ...}``.
 
 Any failed phase raises and the script exits non-zero; so does a machine
 without a CUDA card. The weights are random, drawn from seed 0. TF32 is off
@@ -36,26 +44,58 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import COVID_CNN  # noqa: E402
+from repro_torch.configs import COVID_CNN, get_config  # noqa: E402
 from repro_torch.core.adapters import cnn_adapter  # noqa: E402
 from repro_torch.data import make_covid_ct, split_clients  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.dp_release import ops as dp_ops  # noqa: E402
 from repro_torch.kernels.dp_release.ref import dp_release_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_mask  # noqa: E402
 from repro_torch.kernels.privacy_conv import ops as pc_ops  # noqa: E402
 from repro_torch.kernels.privacy_conv.ref import privacy_conv_ref  # noqa: E402
+from repro_torch.kernels.selective_scan import ops as ss_ops  # noqa: E402
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.privacy import DPConfig, PrivacyGuard  # noqa: E402
 from repro_torch.serving import SplitInferenceServer, poisson_trace  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA H100 datasheet): HBM3 rate and
-# float32 rate outside the tensor cores
+# H100 SXM published peaks (NVIDIA H100 datasheet): HBM3 rate, float32 rate
+# outside the tensor cores, and the dense bfloat16 tensor-core rate (a
+# bfloat16 product is exact in float32, so bfloat16 operands can do their
+# products at this rate whatever the kernel does)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS_PER_S = 67e12
+PEAK_BF16_FLOPS_PER_S = 989e12
 # kernel vs plain version: float32 sums in another order
 KERNEL_TOL = dict(atol=1e-5, rtol=1e-5)
 # whole-trunk logits: the float32 rounding of the release carried through
 # four convs and two dense layers
 SERVE_TOL = dict(atol=1e-4, rtol=1e-4)
+# flash attention vs its plain version: float32, the JAX suite's 2e-5
+# (tests/test_kernels.py:19), sums in another order (tile by tile, with the
+# online rescaling); bfloat16, both sides compute in float32 and round the
+# output to bfloat16, so they differ where the float32 values straddle a
+# rounding boundary: rtol 1.6e-2 is two bfloat16 ulps (2 x 2^-7 of the
+# value), atol 2e-3 covers the values near zero
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+            torch.bfloat16: dict(atol=2e-3, rtol=1.6e-2)}
+# SDPA (the library yardstick) vs the kernel, bfloat16: another computation
+# of the function, which rounds the probabilities to bfloat16 before P.V
+# where the kernel keeps them in float32; held to four bfloat16 ulps of the
+# value, and at least four ulps of 1
+LIB_TOL = dict(atol=3.2e-2, rtol=3.2e-2)
+# selective scan vs its plain version (tests/test_kernels.py:110): the sum
+# over the states in another order and expf's ulps, carried by the recurrence
+SCAN_TOL = dict(atol=1e-5, rtol=1e-4)
+# (config, batch, sequence, dtypes) of the attention cases; the first dtype
+# of llama3.2-1b is the timed case. Each case runs in float32 too, where the
+# tolerance holds the mask, the window and the head dim tightly.
+# hubert-xlarge: 30 s of 20 ms frames, 1500 rows, a ragged tail for the
+# 64-row tiles
+ATTN_CASES = (("llama3.2-1b", 4, 2048, (torch.bfloat16, torch.float32)),
+              ("mixtral-8x7b", 1, 8192, (torch.bfloat16, torch.float32)),
+              ("hubert-xlarge", 8, 1500, (torch.bfloat16, torch.float32)))
+SCAN_CASE = ("falcon-mamba-7b", 4, 2048)
 SHARES = (0.7, 0.2, 0.1)
 REQUEST_BATCH = 64  # one chest-CT study of 64 slices; the paper's batch size
 MAX_BATCH = 8
@@ -107,11 +147,11 @@ def cuda_ms(fn, iters: int = 50) -> float:
             raise RuntimeError("the host could not enqueue the timed calls ahead of the device")
 
 
-def host_fed_ms(fn, iters: int = 100) -> float:
+def host_fed_ms(fn, iters: int = 100, warmup: int = 10) -> float:
     """Milliseconds per call when the host launches the calls one after
     another with nothing queued ahead: the rate a Python caller sees, which
     includes the host's launch cost where it exceeds the device time."""
-    for _ in range(10):
+    for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -133,10 +173,11 @@ def paired_ms(kernel, plain, timer=cuda_ms, rounds: int = 5) -> tuple:
     return float(np.median(ks)), float(np.median(ps))
 
 
-def bound(nbytes: int, flops: int) -> dict:
+def bound(nbytes: int, flops: int, peak_flops: float = PEAK_F32_FLOPS_PER_S) -> dict:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS_PER_S * 1e3
-    return {"bytes": nbytes, "flops": flops, "bound_ms": max(t_bytes, t_ops),
+    t_ops = flops / peak_flops * 1e3
+    return {"bytes": nbytes, "flops": flops, "peak_flops_per_s": peak_flops,
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
@@ -162,6 +203,67 @@ def release_work(shape, sigma: float) -> dict:
     nbytes = 4 * n * (3 if sigma > 0 else 2)
     flops = n * (5 if sigma > 0 else 3)  # x*x+acc, x*scale (+ sigma*noise + add)
     return bound(nbytes, flops)
+
+
+def attention_inputs(name, B, S, dtype, seed, dev) -> dict:
+    """A case at ``name``'s published widths, drawn on the card from
+    ``seed``: q ``[B,S,H,hd]``, k and v ``[B,S,KV,hd]``, and the config's
+    mask (causal or not, its sliding window)."""
+    cfg = get_config(name)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if cfg.sliding_window and S <= cfg.sliding_window:
+        raise AssertionError(f"{name}: S {S} does not exceed the window {cfg.sliding_window}")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, h, hd), generator=gen, device=dev).to(dtype)
+               for h in (H, KV, KV))
+    return {"q": q, "k": k, "v": v, "causal": cfg.causal, "window": cfg.sliding_window,
+            "shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd}}
+
+
+def attention_plain_by_group(c) -> torch.Tensor:
+    """The plain version one kv head's group of query heads at a time, so
+    that its [heads, S, S] float32 scores stay a few GB at S 8192."""
+    q, k, v = c["q"], c["k"], c["v"]
+    G = q.shape[2] // k.shape[2]
+    return torch.cat([fa_ops.flash_attention_plain(
+        q[:, :, j * G:(j + 1) * G], k[:, :, j:j + 1], v[:, :, j:j + 1],
+        causal=c["causal"], window=c["window"]) for j in range(k.shape[2])], dim=2)
+
+
+def attention_work(c) -> dict:
+    s = c["shape"]
+    esize = c["q"].element_size()
+    pairs = int(attention_mask(s["S"], causal=c["causal"], window=c["window"],
+                               device=c["q"].device).sum())
+    nbytes = esize * s["B"] * s["S"] * s["hd"] * (2 * s["H"] + 2 * s["KV"])
+    # q.k and p.v: 2 flops each per head dim per unmasked pair, at the peak
+    # of the operands' type
+    peak = PEAK_F32_FLOPS_PER_S if c["q"].dtype == torch.float32 else PEAK_BF16_FLOPS_PER_S
+    return {"unmasked_pairs": pairs,
+            **bound(nbytes, 4 * s["hd"] * pairs * s["B"] * s["H"], peak)}
+
+
+def scan_inputs(B, S, di, st, seed, dev) -> tuple:
+    """u, dt, B, C, A, D on the card from ``seed``: A and D as ``init_ssm``
+    sets them (A = -exp(log(1..st)) per channel, D = 1), dt a softplus of
+    normals as in tests/test_kernels.py:102."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randn((B, S, di), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, di), generator=gen, device=dev) * 0.5 - 1)
+    Bm = torch.randn((B, S, st), generator=gen, device=dev)
+    Cm = torch.randn((B, S, st), generator=gen, device=dev)
+    A = -torch.exp(torch.log(torch.arange(1, st + 1, dtype=torch.float32, device=dev)))
+    A = A[None].repeat(di, 1).contiguous()
+    D = torch.ones((di,), device=dev)
+    return u, dt, Bm, Cm, A, D
+
+
+def scan_work(B, S, di, st) -> dict:
+    nbytes = 4 * (3 * B * S * di + 2 * B * S * st + di * st + di)
+    # per state: dt*A, exp, dA*h, dtu*B, +, h*C and its sum; per channel:
+    # dt*u, D*u, +
+    return bound(nbytes, B * S * di * (8 * st + 3))
 
 
 def covid_state(adapter, dev):
@@ -366,21 +468,136 @@ def main() -> None:
         t["bound_share"] = t["bound_ms"] / t["ms"]
         emit({"phase": "time", "card": smi, **t})
 
+    # ==== the second path: the LM kernels' entry points at the configs' widths
+    attn = {}
+    for i, (name, B, S, dtypes) in enumerate(ATTN_CASES):
+        for dt_ in dtypes:
+            attn[(name, dt_)] = attention_inputs(name, B, S, dt_, seed=10 + i, dev=dev)
+    sname, sB, sS = SCAN_CASE
+    scfg = get_config(sname)
+    scan_shape = (sB, sS, scfg.d_inner, scfg.ssm_state)
+    scan_in = scan_inputs(*scan_shape, seed=20, dev=dev)
+
+    # ---- lm_path: each entry point once per case, the counts read around it
+    torch.cuda.synchronize()
+    fa_ops.launches = ss_ops.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        attn_out = {key: fa_ops.flash_attention(c["q"], c["k"], c["v"], causal=c["causal"],
+                                                window=c["window"])
+                    for key, c in attn.items()}
+        scan_out = ss_ops.selective_scan(*scan_in)
+    torch.cuda.synchronize()
+    lm_wall = time.perf_counter() - t0
+    lm_launches = {"flash_attention": fa_ops.launches, "selective_scan": ss_ops.launches}
+    if lm_launches != {"flash_attention": len(attn), "selective_scan": 1}:
+        raise AssertionError(f"LM path launches {lm_launches}, want one per call")
+    for (name, dt_), out in attn_out.items():
+        c = attn[(name, dt_)]
+        if out.shape != c["q"].shape or out.dtype != dt_ or not torch.isfinite(out).all():
+            raise AssertionError(f"flash_attention/{name}: shape, dtype or non-finite values")
+    if scan_out.shape != scan_in[0].shape or not torch.isfinite(scan_out).all():
+        raise AssertionError("selective_scan: shape or non-finite values")
+    emit({"phase": "lm_path", "card": smi, "wall_s": lm_wall, "launches": lm_launches,
+          "calls": [f"flash_attention/{n}/{str(d).split('.')[-1]}" for n, d in attn]
+          + [f"selective_scan/{sname}"]})
+
+    # ---- lm_check: each output of the path against its plain version on the card
+    for (name, dt_), c in attn.items():
+        case = f"flash_attention/{name}"
+        err = max_err(attn_out[(name, dt_)], attention_plain_by_group(c), **ATTN_TOL[dt_],
+                      what=f"{case}/{dt_}")
+        errs[case] = max(err, errs.get(case, 0.0))
+        emit({"phase": "check", "case": case, "config": name,
+              "dtype": str(dt_).split(".")[-1], **c["shape"], "causal": c["causal"],
+              "window": c["window"], "max_abs_err": err, **ATTN_TOL[dt_]})
+    case = f"selective_scan/{sname}"
+    errs[case] = max_err(scan_out, selective_scan_ref(*scan_in), **SCAN_TOL, what=case)
+    emit({"phase": "check", "case": case, "config": sname, "dtype": "float32",
+          **dict(zip(("B", "S", "di", "st"), scan_shape)), "max_abs_err": errs[case],
+          **SCAN_TOL})
+
+    # ---- lm_reference: the kernels on the card against the plain versions on
+    # the CPU, on small inputs (hd 80, a ragged S, GQA, a window; S 17 scan)
+    gen = torch.Generator().manual_seed(3)
+    small = [torch.randn(shape, generator=gen) for shape in
+             ((2, 100, 4, 80), (2, 100, 2, 80), (2, 100, 2, 80))]
+    with torch.no_grad():
+        card_attn = fa_ops.flash_attention(*(t.to(dev) for t in small), window=24).cpu()
+    attn_ref_err = max_err(card_attn, fa_ops.flash_attention(*small, window=24),
+                           **ATTN_TOL[torch.float32], what="flash_attention vs cpu")
+    small_scan = [t.cpu() for t in scan_inputs(1, 17, 64, 16, seed=4, dev=dev)]
+    with torch.no_grad():
+        card_scan = ss_ops.selective_scan(*(t.to(dev) for t in small_scan), t_chunk=5).cpu()
+    scan_ref_err = max_err(card_scan, ss_ops.selective_scan(*small_scan), **SCAN_TOL,
+                           what="selective_scan vs cpu")
+    emit({"phase": "lm_reference", "reference_device": "cpu",
+          "flash_attention": {"shape": [2, 100, 4, 2, 80], "window": 24,
+                              "max_abs_err_vs_cpu": attn_ref_err, **ATTN_TOL[torch.float32]},
+          "selective_scan": {"shape": [1, 17, 64, 16], "t_chunk": 5,
+                             "max_abs_err_vs_cpu": scan_ref_err, **SCAN_TOL}})
+
+    # ---- lm_time: the two timed cases. The plain scan runs a Python loop of
+    # 2048 steps, some 8,000 launches a call, more than the launch queue
+    # holds: it cannot be queued ahead of the device, so its time is host-fed.
+    c = attn[("llama3.2-1b", torch.bfloat16)]
+    fa_args = (c["q"], c["k"], c["v"])
+    fa_mask = dict(causal=c["causal"], window=c["window"])
+    fa_fns = (lambda: fa_ops.flash_attention(*fa_args, **fa_mask),
+              lambda: fa_ops.flash_attention_plain(*fa_args, **fa_mask))
+    k_ms, p_ms = paired_ms(*fa_fns)
+    k_host, p_host = paired_ms(*fa_fns, timer=host_fed_ms)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (c["q"], c["k"], c["v"]))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    lib_err = max_err(sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2),
+                      attn_out[("llama3.2-1b", torch.bfloat16)], **LIB_TOL,
+                      what="sdpa vs kernel")
+    timed["flash_attention"] = {
+        "case": "flash_attention/llama3.2-1b", "dtype": "bfloat16", **c["shape"],
+        "ms": k_ms, "plain_ms": p_ms, "host_fed_ms": k_host, "plain_host_fed_ms": p_host,
+        "library_ms": lib_ms,
+        "library_note": "torch scaled_dot_product_attention(is_causal, enable_gqa) on "
+                        "[B,H,S,hd] copies; a yardstick the port never calls",
+        "library_max_abs_err": lib_err, "library_tol": LIB_TOL, **attention_work(c)}
+    scan_fns = (lambda: ss_ops.selective_scan(*scan_in), lambda: selective_scan_ref(*scan_in))
+    k_runs, p_runs = [], []
+    for r in range(3):
+        k_runs.append(cuda_ms(scan_fns[0]))
+        p_runs.append(host_fed_ms(scan_fns[1], iters=2, warmup=int(r == 0)))
+    timed["selective_scan"] = {
+        "case": f"selective_scan/{sname}", "dtype": "float32",
+        **dict(zip(("B", "S", "di", "st"), scan_shape)),
+        "ms": float(np.median(k_runs)), "plain_ms": float(np.median(p_runs)),
+        "plain_timer": "host_fed", "host_fed_ms": host_fed_ms(scan_fns[0]),
+        "library_ms": None, "library_note": "no single PyTorch call computes the scan",
+        **scan_work(*scan_shape)}
+    for key in ("flash_attention", "selective_scan"):
+        t = timed[key]
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        emit({"phase": "time", "card": smi, **t})
+
     # ---- kernels: one line for every ported kernel
     rows = [
         ("privacy_conv", "src/repro_torch/csrc/privacy_conv.cu",
          "src/repro/kernels/privacy_conv/kernel.py:56", "privacy_conv/covid",
-         timed["privacy_conv"]),
+         timed["privacy_conv"], launches),
         ("dp_release", "src/repro_torch/csrc/dp_release.cu",
          "src/repro/kernels/dp_release/kernel.py:39", "dp_release/covid",
-         timed["dp_release/covid"]),
+         timed["dp_release/covid"], launches),
+        ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention/kernel.py:66", "flash_attention/llama3.2-1b",
+         timed["flash_attention"], lm_launches),
+        ("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
+         "src/repro/kernels/selective_scan/kernel.py:53", f"selective_scan/{sname}",
+         timed["selective_scan"], lm_launches),
     ]
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep_line,
-         "launches": launches[name], "max_abs_err": errs[case], "ms": t["ms"],
+         "launches": counts[name], "max_abs_err": errs[case], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
          "library_ms": t["library_ms"]}
-        for name, src, rep_line, case, t in rows]})
+        for name, src, rep_line, case, t, counts in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,0 +1,18 @@
+"""Command R+ 104B — GQA, no bias [hf:CohereForAI/c4ai-command-r-v01]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(
+    ModelConfig(
+        name="command-r-plus-104b",
+        family="dense",
+        n_layers=64,
+        d_model=12_288,
+        n_heads=96,
+        n_kv_heads=8,
+        d_ff=33_792,
+        vocab_size=256_000,
+        head_dim=128,
+        rope_theta=75_000_000.0,
+        citation="hf:CohereForAI/c4ai-command-r-v01",
+    )
+)

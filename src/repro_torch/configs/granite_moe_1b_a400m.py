@@ -1,0 +1,20 @@
+"""Granite 3.0 1B-A400M — 32 experts top-8 [hf:ibm-granite/granite-3.0-1b-a400m-base]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(
+    ModelConfig(
+        name="granite-moe-1b-a400m",
+        family="moe",
+        n_layers=24,
+        d_model=1024,
+        n_heads=16,
+        n_kv_heads=8,
+        d_ff=512,
+        vocab_size=49_155,
+        head_dim=64,
+        n_experts=32,
+        experts_per_token=8,
+        tie_embeddings=True,
+        citation="hf:ibm-granite/granite-3.0-1b-a400m-base",
+    )
+)

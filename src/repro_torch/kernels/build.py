@@ -25,7 +25,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNELS = ("privacy_conv", "dp_release")
+KERNELS = ("privacy_conv", "dp_release", "flash_attention", "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,6 +35,8 @@ _c_ptr, _c_int, _c_ll, _c_float = (ctypes.c_void_p, ctypes.c_int,
 SIGNATURES = {
     "privacy_conv": (_c_ptr,) * 5 + (_c_int,) * 5 + (_c_float, _c_ptr),
     "dp_release": (_c_ptr,) * 3 + (_c_ll, _c_ll, _c_float, _c_float, _c_ptr),
+    "flash_attention": (_c_ptr,) * 4 + (_c_int,) * 8 + (_c_float, _c_ptr),
+    "selective_scan": (_c_ptr,) * 7 + (_c_int,) * 6 + (_c_ptr,),
 }
 
 _lock = threading.Lock()

@@ -4,8 +4,14 @@ without a card every test skips with the reason. This file imports neither
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerance 1e-5 absolute and relative, with TF32 off for the cuDNN conv of
-the plain version: float32 sums in another order.
+Tolerance 1e-5 absolute and relative for the serving kernels, with TF32 off
+for the cuDNN conv of the plain version: float32 sums in another order. The
+LM kernels: attention 2e-5 in float32, the JAX suite's (tests/test_kernels.py:19;
+sums in another order); in bfloat16 atol 2e-3, rtol 1.6e-2, two bfloat16 ulps
+(both sides compute in float32 and round the output to bfloat16, so they
+differ where the float32 values straddle a rounding boundary); the scan atol
+1e-5, rtol 1e-4 (tests/test_kernels.py:110; the sum over states in another
+order, through the recurrence).
 """
 import dataclasses
 
@@ -18,13 +24,19 @@ from repro_torch.core.adapters import cnn_adapter
 from repro_torch.data import make_covid_ct, split_clients
 from repro_torch.kernels.dp_release import ops as dp_ops
 from repro_torch.kernels.dp_release.ref import dp_release_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.privacy_conv import ops as pc_ops
 from repro_torch.kernels.privacy_conv.ref import privacy_conv_ref
+from repro_torch.kernels.selective_scan import ops as ss_ops
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.privacy import DPConfig, PrivacyGuard
 from repro_torch.serving import SplitInferenceServer, poisson_trace
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=1e-5, rtol=1e-5)
+ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+            torch.bfloat16: dict(atol=2e-3, rtol=1.6e-2)}
+SCAN_TOL = dict(atol=1e-5, rtol=1e-4)
 
 
 @pytest.fixture
@@ -90,3 +102,70 @@ def test_serve_launches_each_kernel_once_per_release(cuda):
     assert releases == rep.offered > 0
     assert (pc_ops.launches - before[0], dp_ops.launches - before[1]) == (releases, releases)
     assert all(np.isfinite(r).all() for r in rep.responses.values())
+
+
+@pytest.mark.parametrize("B,S,H,KV,hd,causal,window,dtype", [
+    (2, 64, 4, 4, 64, True, 0, torch.float32),
+    (2, 100, 8, 2, 80, True, 0, torch.bfloat16),     # ragged tail, GQA, hd 80
+    (1, 130, 4, 1, 128, False, 0, torch.float32),    # bidirectional, ragged
+    (2, 200, 4, 2, 32, True, 24, torch.float32),     # window: fully masked first tiles
+    (1, 150, 2, 2, 80, False, 40, torch.float32),    # bidirectional window, hd 80
+    (1, 257, 8, 8, 32, True, 0, torch.bfloat16),     # ragged by one row
+    (1, 300, 4, 2, 128, True, 64, torch.bfloat16)])  # window in bfloat16
+def test_flash_attention_kernel(cuda, B, S, H, KV, hd, causal, window, dtype):
+    g = torch.Generator().manual_seed(2)
+    q = _randn(g, B, S, H, hd).to(dtype)
+    k, v = (_randn(g, B, S, KV, hd).to(dtype) for _ in range(2))
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = fa_ops.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("Bsz,S,di,st,d_tile,t_chunk,init_a", [
+    (2, 32, 64, 8, 32, 8, False),
+    (1, 17, 64, 16, 64, 5, True),      # ragged time chunk, A and D as init_ssm
+    (2, 100, 130, 16, 128, 64, True),  # di not a multiple of the block's channels
+    (1, 40, 48, 40, 16, 7, False),     # st 40: two states a lane
+    (3, 9, 5, 1, 128, 64, False)])     # st 1: one lane a channel
+def test_selective_scan_kernel(cuda, Bsz, S, di, st, d_tile, t_chunk, init_a):
+    g = torch.Generator().manual_seed(3)
+    u = _randn(g, Bsz, S, di)
+    dt = torch.nn.functional.softplus(_randn(g, Bsz, S, di) * 0.5 - 1)
+    B, C = _randn(g, Bsz, S, st), _randn(g, Bsz, S, st)
+    if init_a:
+        A = -torch.arange(1, st + 1, dtype=torch.float32, device=cuda)[None].repeat(di, 1)
+        D = torch.ones(di, device=cuda)
+    else:
+        A = -torch.exp(_randn(g, di, st, scale=0.3))
+        D = _randn(g, di)
+    before = ss_ops.launches
+    got = ss_ops.selective_scan(u, dt, B, C, A, D, d_tile=d_tile, t_chunk=t_chunk)
+    torch.cuda.synchronize()
+    assert ss_ops.launches == before + 1
+    torch.testing.assert_close(got, selective_scan_ref(u, dt, B, C, A, D), **SCAN_TOL)
+
+
+def test_lm_kernels_are_forward_only_and_refuse_what_they_do_not_take(cuda):
+    q = torch.randn(1, 8, 2, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 8, 2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="forward only"):
+        fa_ops.flash_attention(q, k, k)
+    with torch.no_grad():
+        assert fa_ops.flash_attention(q, k, k).shape == q.shape
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(*(torch.randn(1, 8, 2, 72, device=cuda) for _ in range(3)))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa_ops.flash_attention(*(torch.randn(1, 8, 2, 64, device=cuda).half()
+                                 for _ in range(3)))
+    u = torch.randn(1, 4, 8, device=cuda, requires_grad=True)
+    rest = (torch.rand(1, 4, 8, device=cuda), torch.randn(1, 4, 2, device=cuda),
+            torch.randn(1, 4, 2, device=cuda), -torch.ones(8, 2, device=cuda),
+            torch.ones(8, device=cuda))
+    with pytest.raises(RuntimeError, match="forward only"):
+        ss_ops.selective_scan(u, *rest)
+    with pytest.raises(ValueError, match="float32"):
+        ss_ops.selective_scan(u.detach().double(), *rest)
