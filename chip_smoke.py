@@ -18,10 +18,11 @@ Then it drives the second path, the LM kernels' public entry points
 ``flash_attention`` and ``selective_scan``, at the full widths of the repo's
 LM configs (llama3.2-1b, mixtral-8x7b with its sliding window,
 hubert-xlarge bidirectional with a ragged S, falcon-mamba-7b's scan), holds
-each output against its plain version on the card and a small case against
-the CPU, and times the two timed cases. It prints one JSON object per phase
-and a ``kernels`` line with every ported kernel. The last line is
-``{"ok": true, "device": ...}``.
+each output against its plain version on the card and small float32 and
+bfloat16 cases against the CPU, and times the attention cases (the bfloat16
+ones beside SDPA) and the scan, each tile or lane choice of a kernel against
+the one it beat. It prints one JSON object per phase and a ``kernels`` line
+with every ported kernel. The last line is ``{"ok": true, "device": ...}``.
 
 Any failed phase raises and the script exits non-zero; so does a machine
 without a CUDA card. The weights are random, drawn from seed 0. TF32 is off
@@ -243,6 +244,39 @@ def attention_work(c) -> dict:
             **bound(nbytes, 4 * s["hd"] * pairs * s["B"] * s["H"], peak)}
 
 
+def attention_library(c) -> tuple:
+    """One SDPA call on ``c``'s inputs (copies in SDPA's ``[B, H, S, hd]``
+    layout, made here, outside the timed call) and its note. Without a
+    window it is ``is_causal`` with ``enable_gqa``; a sliding window has no
+    SDPA flag, so it is a boolean mask with k and v repeated to the query
+    heads."""
+    q, k, v = (t.transpose(1, 2).contiguous() for t in (c["q"], c["k"], c["v"]))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not c["window"]:
+        return (lambda: sdpa(q, k, v, is_causal=c["causal"], enable_gqa=True),
+                f"torch scaled_dot_product_attention(is_causal={c['causal']}, enable_gqa) "
+                "on [B,H,S,hd] copies; a yardstick the port never calls")
+    G = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(G, dim=1) for t in (k, v))
+    mask = attention_mask(q.shape[2], causal=c["causal"], window=c["window"], device=q.device)
+    return (lambda: sdpa(q, k, v, attn_mask=mask),
+            "torch scaled_dot_product_attention with a boolean [S,S] mask (causal and the "
+            "window; SDPA has no window flag) on [B,H,S,hd] copies, kv repeated to the "
+            "query heads; library_kernel names the device kernel it ran")
+
+
+def top_device_kernel(fn) -> str:
+    """The name of the device kernel that took most of one call of ``fn``
+    (under the profiler), to name the backend a library call took."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return "not identified: the profiler recorded no device kernel"
+    return max(events, key=lambda e: e.self_device_time_total).key[:160]
+
+
 def scan_inputs(B, S, di, st, seed, dev) -> tuple:
     """u, dt, B, C, A, D on the card from ``seed``: A and D as ``init_ssm``
     sets them (A = -exp(log(1..st)) per channel, D = 1), dt a softplus of
@@ -294,7 +328,12 @@ def main() -> None:
     # ---- build: one nvcc per source, all started together
     t0 = time.perf_counter()
     info = build.build()
-    emit({"phase": "build", "wall_s": time.perf_counter() - t0,
+    wall = time.perf_counter() - t0
+    # the bf16 attention kernels run on the tensor cores: HMMA in their SASS
+    hmma = build.sass_counts("flash_attention", "HMMA")
+    if hmma is not None and not all(n for f, n in hmma.items() if "bf16" in f):
+        raise AssertionError(f"a bf16 attention kernel has no HMMA instruction: {hmma}")
+    emit({"phase": "build", "wall_s": wall, "flash_attention_hmma": hmma,
           "kernels": {n: {k: v for k, v in i.items() if k != "path"} for n, i in info.items()}})
 
     # ---- check: each kernel against its plain version on the card
@@ -526,6 +565,12 @@ def main() -> None:
         card_attn = fa_ops.flash_attention(*(t.to(dev) for t in small), window=24).cpu()
     attn_ref_err = max_err(card_attn, fa_ops.flash_attention(*small, window=24),
                            **ATTN_TOL[torch.float32], what="flash_attention vs cpu")
+    # the same in bfloat16: the tensor-core kernel against the CPU
+    small_bf = [t.bfloat16() for t in small]
+    with torch.no_grad():
+        card_bf = fa_ops.flash_attention(*(t.to(dev) for t in small_bf), window=24).cpu()
+    attn_bf_err = max_err(card_bf, fa_ops.flash_attention(*small_bf, window=24),
+                          **ATTN_TOL[torch.bfloat16], what="bf16 flash_attention vs cpu")
     small_scan = [t.cpu() for t in scan_inputs(1, 17, 64, 16, seed=4, dev=dev)]
     with torch.no_grad():
         card_scan = ss_ops.selective_scan(*(t.to(dev) for t in small_scan), t_chunk=5).cpu()
@@ -534,45 +579,57 @@ def main() -> None:
     emit({"phase": "lm_reference", "reference_device": "cpu",
           "flash_attention": {"shape": [2, 100, 4, 2, 80], "window": 24,
                               "max_abs_err_vs_cpu": attn_ref_err, **ATTN_TOL[torch.float32]},
+          "flash_attention_bf16": {"shape": [2, 100, 4, 2, 80], "window": 24,
+                                   "max_abs_err_vs_cpu": attn_bf_err,
+                                   **ATTN_TOL[torch.bfloat16]},
           "selective_scan": {"shape": [1, 17, 64, 16], "t_chunk": 5,
                              "max_abs_err_vs_cpu": scan_ref_err, **SCAN_TOL}})
 
-    # ---- lm_time: the two timed cases. The plain scan runs a Python loop of
-    # 2048 steps, some 8,000 launches a call, more than the launch queue
-    # holds: it cannot be queued ahead of the device, so its time is host-fed.
-    c = attn[("llama3.2-1b", torch.bfloat16)]
-    fa_args = (c["q"], c["k"], c["v"])
-    fa_mask = dict(causal=c["causal"], window=c["window"])
-    fa_fns = (lambda: fa_ops.flash_attention(*fa_args, **fa_mask),
-              lambda: fa_ops.flash_attention_plain(*fa_args, **fa_mask))
-    k_ms, p_ms = paired_ms(*fa_fns)
-    k_host, p_host = paired_ms(*fa_fns, timer=host_fed_ms)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (c["q"], c["k"], c["v"]))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
-    lib_err = max_err(sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2),
-                      attn_out[("llama3.2-1b", torch.bfloat16)], **LIB_TOL,
-                      what="sdpa vs kernel")
-    timed["flash_attention"] = {
-        "case": "flash_attention/llama3.2-1b", "dtype": "bfloat16", **c["shape"],
-        "ms": k_ms, "plain_ms": p_ms, "host_fed_ms": k_host, "plain_host_fed_ms": p_host,
-        "library_ms": lib_ms,
-        "library_note": "torch scaled_dot_product_attention(is_causal, enable_gqa) on "
-                        "[B,H,S,hd] copies; a yardstick the port never calls",
-        "library_max_abs_err": lib_err, "library_tol": LIB_TOL, **attention_work(c)}
+    # ---- lm_time: the three attention cases in bfloat16, each beside SDPA,
+    # and the scan; each kernel's own tile (lane) choice is timed in turns
+    # against the one it beat. The plain scan runs a Python loop of 2048
+    # steps, some 8,000 launches a call, more than the launch queue holds: it
+    # cannot be queued ahead of the device, so its time is host-fed.
+    fa_other = fa_ops.Q_ROWS[torch.bfloat16][1]
+    for name, *_ in ATTN_CASES:
+        c = attn[(name, torch.bfloat16)]
+        fa_args = (c["q"], c["k"], c["v"])
+        fa_mask = dict(causal=c["causal"], window=c["window"])
+        fa_fns = (lambda: fa_ops.flash_attention(*fa_args, **fa_mask),
+                  lambda: fa_ops.flash_attention_plain(*fa_args, **fa_mask))
+        k_ms, o_ms = paired_ms(fa_fns[0], lambda: fa_ops._launch(
+            *fa_args, c["causal"], c["window"], q_rows=fa_other))
+        lib_fn, lib_note = attention_library(c)
+        lib_kernel = top_device_kernel(lib_fn)
+        lib_ms = cuda_ms(lib_fn)
+        lib_err = max_err(lib_fn().transpose(1, 2), attn_out[(name, torch.bfloat16)],
+                          **LIB_TOL, what=f"sdpa vs kernel, {name}")
+        t = {"case": f"flash_attention/{name}", "dtype": "bfloat16", **c["shape"],
+             "causal": c["causal"], "window": c["window"], "ms": k_ms,
+             "q_rows": fa_ops.Q_ROWS[torch.bfloat16][0],
+             "other_tile": {"q_rows": fa_other, "ms": o_ms},
+             "library_ms": lib_ms, "library_note": lib_note, "library_kernel": lib_kernel,
+             "library_max_abs_err": lib_err, "library_tol": LIB_TOL, **attention_work(c)}
+        if name == "llama3.2-1b":  # the kernels line's case: the plain version too
+            t["plain_ms"] = paired_ms(*fa_fns)[1]
+            t["host_fed_ms"], t["plain_host_fed_ms"] = paired_ms(*fa_fns, timer=host_fed_ms)
+        timed[f"flash_attention/{name}"] = t
+    ss_other = ss_ops.LANES[16][1]
     scan_fns = (lambda: ss_ops.selective_scan(*scan_in), lambda: selective_scan_ref(*scan_in))
-    k_runs, p_runs = [], []
-    for r in range(3):
-        k_runs.append(cuda_ms(scan_fns[0]))
-        p_runs.append(host_fed_ms(scan_fns[1], iters=2, warmup=int(r == 0)))
+    # the entry point's d_tile 128 and t_chunk 64, with the other lane count
+    k_ms, o_ms = paired_ms(scan_fns[0], lambda: ss_ops._launch(*scan_in, 128, 64,
+                                                                lanes=ss_other))
+    p_runs = [host_fed_ms(scan_fns[1], iters=2, warmup=int(r == 0)) for r in range(3)]
     timed["selective_scan"] = {
         "case": f"selective_scan/{sname}", "dtype": "float32",
         **dict(zip(("B", "S", "di", "st"), scan_shape)),
-        "ms": float(np.median(k_runs)), "plain_ms": float(np.median(p_runs)),
-        "plain_timer": "host_fed", "host_fed_ms": host_fed_ms(scan_fns[0]),
+        "ms": k_ms, "lanes": ss_ops.LANES[16][0],
+        "other_lanes": {"lanes": ss_other, "ms": o_ms},
+        "plain_ms": float(np.median(p_runs)), "plain_timer": "host_fed",
+        "host_fed_ms": host_fed_ms(scan_fns[0]),
         "library_ms": None, "library_note": "no single PyTorch call computes the scan",
         **scan_work(*scan_shape)}
-    for key in ("flash_attention", "selective_scan"):
+    for key in [f"flash_attention/{n}" for n, *_ in ATTN_CASES] + ["selective_scan"]:
         t = timed[key]
         t["bound_share"] = t["bound_ms"] / t["ms"]
         emit({"phase": "time", "card": smi, **t})
@@ -587,7 +644,7 @@ def main() -> None:
          timed["dp_release/covid"], launches),
         ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
          "src/repro/kernels/flash_attention/kernel.py:66", "flash_attention/llama3.2-1b",
-         timed["flash_attention"], lm_launches),
+         timed["flash_attention/llama3.2-1b"], lm_launches),
         ("selective_scan", "src/repro_torch/csrc/selective_scan.cu",
          "src/repro/kernels/selective_scan/kernel.py:53", f"selective_scan/{sname}",
          timed["selective_scan"], lm_launches),

@@ -13,6 +13,8 @@ from typing import Any, Callable, Dict, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device
+
 
 def tree_map(fn: Callable[[Any], Any], tree):
     """Apply ``fn`` to every leaf; containers keep their kind (tuples come
@@ -27,13 +29,16 @@ def tree_map(fn: Callable[[Any], Any], tree):
 
 
 def to_torch(tree, device: Optional[Union[str, torch.device]] = None):
-    """Every leaf as a tensor on ``device`` (dtype kept). An array leaf is
-    copied (JAX arrays are read-only buffers); a tensor leaf is moved, not
-    copied, when it is already there."""
+    """Every leaf as a tensor on ``device`` (dtype kept); ``None`` means the
+    card, as everywhere in the port (:func:`resolve_device`), so with no card
+    it raises. An array leaf is copied (JAX arrays are read-only buffers); a
+    tensor leaf is moved, not copied, when it is already there."""
+    dev = resolve_device(device)
+
     def leaf(a):
         if isinstance(a, torch.Tensor):
-            return a.to(device) if device is not None else a
-        return torch.from_numpy(np.array(a)).to(device)
+            return a.to(dev)
+        return torch.from_numpy(np.array(a)).to(dev)
 
     return tree_map(leaf, tree)
 

@@ -31,12 +31,21 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _c_ptr, _c_int, _c_ll, _c_float = (ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_longlong, ctypes.c_float)
-# the C interface of each source; every pointer and the stream as c_void_p
+# the C interface of each source, by function; every pointer and the stream
+# as c_void_p. ``<name>_launch`` is the entry point; ``flash_attention_launch_tiles``
+# and ``selective_scan_launch_lanes`` take the tile or lane choice that
+# ``<name>_launch`` makes for itself, so that it can be timed against another.
 SIGNATURES = {
-    "privacy_conv": (_c_ptr,) * 5 + (_c_int,) * 5 + (_c_float, _c_ptr),
-    "dp_release": (_c_ptr,) * 3 + (_c_ll, _c_ll, _c_float, _c_float, _c_ptr),
-    "flash_attention": (_c_ptr,) * 4 + (_c_int,) * 8 + (_c_float, _c_ptr),
-    "selective_scan": (_c_ptr,) * 7 + (_c_int,) * 6 + (_c_ptr,),
+    "privacy_conv": {"privacy_conv_launch": (_c_ptr,) * 5 + (_c_int,) * 5 + (_c_float, _c_ptr)},
+    "dp_release": {"dp_release_launch": (_c_ptr,) * 3 + (_c_ll, _c_ll, _c_float, _c_float,
+                                                       _c_ptr)},
+    "flash_attention": {
+        "flash_attention_launch": (_c_ptr,) * 4 + (_c_int,) * 8 + (_c_float, _c_ptr),
+        "flash_attention_launch_tiles": (_c_ptr,) * 4 + (_c_int,) * 8 + (_c_float, _c_int,
+                                                                          _c_ptr)},
+    "selective_scan": {
+        "selective_scan_launch": (_c_ptr,) * 7 + (_c_int,) * 6 + (_c_ptr,),
+        "selective_scan_launch_lanes": (_c_ptr,) * 7 + (_c_int,) * 7 + (_c_ptr,)},
 }
 
 _lock = threading.Lock()
@@ -59,19 +68,76 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _tool(name: str):
+    """A program of the CUDA toolkit (``cu++filt``, ``cuobjdump``), or None."""
+    path = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", name)
+    return path if os.path.exists(path) else shutil.which(name)
+
+
+def _demangle(names: Iterable[str]) -> Dict[str, str]:
+    """Mangled kernel names as ``kernel<args>`` (no return type, namespace
+    or parameters), where a demangler is at hand."""
+    names = list(names)
+    tool = _tool("cu++filt") or shutil.which("c++filt")
+    if tool is None or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    if len(out) != len(names):
+        return {n: n for n in names}
+    # "void <unnamed>::kernel<(int)64, (int)4>(const float *, ...)" -> "kernel<64, 4>"
+    short = (re.sub(r"\((?:unsigned )?(?:int|long)\)|\(anonymous namespace\)::|<unnamed>::",
+                    "", o).split("(")[0].removeprefix("void ") for o in out)
+    return dict(zip(names, short))
+
+
 def _ptxas_summary(log: str) -> dict:
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-    spill_st = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
-    spill_ld = [int(m) for m in re.findall(r"(\d+) bytes spill loads", log)]
-    return {"registers": max(regs, default=None),
-            "spill_store_bytes": sum(spill_st), "spill_load_bytes": sum(spill_ld)}
+    """The most registers of any kernel and the spills of all, and the same
+    for each kernel (``functions``, by demangled name), from ``-Xptxas -v``."""
+    per = {}
+    for chunk in log.split("Compiling entry function '")[1:]:
+        fname = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        st = re.search(r"(\d+) bytes spill stores", chunk)
+        ld = re.search(r"(\d+) bytes spill loads", chunk)
+        per[fname] = {"registers": int(regs.group(1)) if regs else None,
+                      "spill_store_bytes": int(st.group(1)) if st else 0,
+                      "spill_load_bytes": int(ld.group(1)) if ld else 0}
+    names = _demangle(per)
+    return {"registers": max((f["registers"] or 0 for f in per.values()), default=None),
+            "spill_store_bytes": sum(f["spill_store_bytes"] for f in per.values()),
+            "spill_load_bytes": sum(f["spill_load_bytes"] for f in per.values()),
+            "functions": {names[n]: f for n, f in per.items()}}
+
+
+def sass_counts(name: str, opcode: str):
+    """``{kernel: number of SASS instructions with that opcode, any
+    modifiers}`` in the built library of ``name`` (demangled kernel names), from
+    ``cuobjdump -sass``; None where the toolkit has no ``cuobjdump``."""
+    tool = _tool("cuobjdump")
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(_target(name))], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts: Dict[str, int] = {}
+    fname = None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            fname = m.group(1)
+            counts[fname] = 0
+        elif fname is not None and re.search(rf"\*/\s+(?:@!?U?P\w+\s+)?{opcode}\b", line):
+            counts[fname] += 1
+    names = _demangle(counts)
+    return {names[n]: c for n, c in counts.items()}
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
     """Compile every named kernel that has no library yet, one ``nvcc`` per
     source, all started together. Returns ``{name: {"seconds", "cached",
-    "registers", "spill_store_bytes", "spill_load_bytes", "path"}}``
-    (compile seconds of each process, and what ``-Xptxas -v`` reported).
+    "registers", "spill_store_bytes", "spill_load_bytes", "functions",
+    "path"}}`` (compile seconds of each process, and what ``-Xptxas -v``
+    reported, in all and for each kernel).
     Raises with the compiler's output when a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     info: Dict[str, dict] = {}
@@ -105,14 +171,15 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, dict]:
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed, with
-    ``argtypes``/``restype`` of its ``<name>_launch`` function declared."""
+    ``argtypes``/``restype`` of its C functions declared."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(_target(name)))
-            fn = getattr(lib, f"{name}_launch")
-            fn.argtypes = list(SIGNATURES[name])
-            fn.restype = ctypes.c_int
+            for fname, argtypes in SIGNATURES[name].items():
+                fn = getattr(lib, fname)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib

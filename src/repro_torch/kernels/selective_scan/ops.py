@@ -3,7 +3,8 @@
 :func:`selective_scan` is the public entry point, with the signature of
 ``repro/kernels/selective_scan/ops.py:13``. For CUDA tensors it launches the
 kernel, which keeps the state ``h`` in registers across the whole time loop
-and never writes ``dA`` or ``dBu`` to device memory. For CPU tensors it runs
+(4 lanes of 4 states a channel for ``d_state <= 16``) and never writes ``dA``
+or ``dBu`` to device memory. For CPU tensors it runs
 the plain version (``ref.selective_scan_ref``), the port's counterpart of
 the Pallas interpreter. There is no other fallback: a CUDA tensor the kernel
 does not take, a failed build or a refused launch raises.
@@ -21,9 +22,15 @@ from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 launches = 0
 
 MAX_STATE = 128  # d_state the kernel holds in registers: 32 lanes x 4 states
+# lanes of a channel the kernel can take for a d_state up to the key; the
+# first is its own choice (csrc/selective_scan.cu selective_scan_launch_lanes)
+LANES = {16: (4, 16), 64: (16,), 128: (32,)}
 
 
-def _launch(u, dt, B, C, A, D, d_tile: int, t_chunk: int) -> torch.Tensor:
+def _launch(u, dt, B, C, A, D, d_tile: int, t_chunk: int, lanes=None) -> torch.Tensor:
+    """Launch the kernel; ``lanes`` (one of ``LANES[k]`` for the least key
+    ``k >= d_state``) overrides the lanes of a channel that the kernel picks
+    for itself."""
     global launches
     if u.dim() != 3 or A.dim() != 2:
         raise ValueError(f"want u [Bsz,S,di] and A [di,st]; got {tuple(u.shape)}, "
@@ -41,6 +48,9 @@ def _launch(u, dt, B, C, A, D, d_tile: int, t_chunk: int) -> torch.Tensor:
                            "has no VJP); call it under torch.no_grad() or on detached inputs")
     if not 1 <= st <= MAX_STATE:
         raise ValueError(f"selective_scan kernel takes 1 <= d_state <= {MAX_STATE}, got {st}")
+    allowed = next(v for k, v in LANES.items() if st <= k)
+    if lanes is not None and lanes not in allowed:
+        raise ValueError(f"lanes {lanes} not in {allowed} for d_state {st}")
     for t in tensors:
         if t.device != u.device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("selective_scan kernel takes contiguous float32 tensors on one "
@@ -52,9 +62,10 @@ def _launch(u, dt, B, C, A, D, d_tile: int, t_chunk: int) -> torch.Tensor:
     lib = build.library("selective_scan")
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.selective_scan_launch(
-            u.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(),
-            D.data_ptr(), y.data_ptr(), Bsz, S, di, st, d_tile, t_chunk, stream)
+        args = (u.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(), A.data_ptr(),
+                D.data_ptr(), y.data_ptr(), Bsz, S, di, st, d_tile, t_chunk)
+        err = (lib.selective_scan_launch(*args, stream) if lanes is None
+               else lib.selective_scan_launch_lanes(*args, lanes, stream))
     if err:
         raise RuntimeError(f"selective_scan kernel launch failed: CUDA error {err}")
     launches += 1
@@ -68,8 +79,9 @@ def selective_scan(u, dt, B, C, A, D, *, d_tile: int = 128, t_chunk: int = 64,
 
     ``use_kernel=False`` runs the plain version on any device. On the card,
     ``d_tile`` is the number of channels a block takes (cut so that a block
-    has at most 1024 threads) and ``t_chunk`` the number of time steps it
-    stages in shared memory at once; neither has to divide its dimension.
+    has at most 512 threads) and ``t_chunk`` the number of time steps it
+    stages in shared memory at once (rounded up to whole groups of a
+    channel's lanes); neither has to divide its dimension.
     """
     if d_tile < 1 or t_chunk < 1:
         raise ValueError(f"d_tile and t_chunk must be positive, got {d_tile}, {t_chunk}")

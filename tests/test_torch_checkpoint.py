@@ -55,3 +55,30 @@ def test_port_checkpoint_loads_in_jax(session, tmp_path):
     # and back into the port from its own file
     again, _ = load_checkpoint(path, device="cpu")
     _assert_leaf_equal(flatten(again), flatten(state))
+
+
+def _bridge_tree():
+    return {"w": np.arange(6, dtype=np.float32).reshape(2, 3),
+            "stages": [{"b": jax.numpy.ones((3,), jax.numpy.float32)},
+                       (np.int32(7), None)],
+            "t": torch.arange(4, dtype=torch.int64)}
+
+
+def test_to_torch_default_device_is_the_card(monkeypatch):
+    """``device=None`` means the card, as everywhere in the port: with no
+    card it raises rather than leave the tree on the CPU unasked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        to_torch(_bridge_tree())
+
+
+def test_to_torch_on_cpu_copies_arrays_and_keeps_tensors():
+    tree = _bridge_tree()
+    got = to_torch(tree, "cpu")
+    assert got["w"].dtype == torch.float32 and got["w"].device.type == "cpu"
+    np.testing.assert_array_equal(got["w"].numpy(), tree["w"])
+    assert not np.shares_memory(got["w"].numpy(), tree["w"])  # a copy
+    assert torch.equal(got["stages"][0]["b"], torch.ones(3))  # a JAX array leaf
+    assert got["stages"][1][0].dtype == torch.int32 and int(got["stages"][1][0]) == 7
+    assert got["stages"][1][1] is None and isinstance(got["stages"][1], list)
+    assert got["t"] is tree["t"]  # already there: not copied

@@ -169,3 +169,92 @@ def test_lm_kernels_are_forward_only_and_refuse_what_they_do_not_take(cuda):
         ss_ops.selective_scan(u, *rest)
     with pytest.raises(ValueError, match="float32"):
         ss_ops.selective_scan(u.detach().double(), *rest)
+
+
+def _attention_case(g, B, S, H, KV, hd, dtype):
+    q = _randn(g, B, S, H, hd).to(dtype)
+    k, v = (_randn(g, B, S, KV, hd).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+# (causal, window) of the three masks; S shorter than a 64-row tile, a tile
+# exactly, one row past it, and several tiles with a ragged tail
+_MASKS = {"causal": (True, 0), "window": (True, 24), "bidirectional": (False, 0),
+          "bidirectional_window": (False, 40)}
+_SEQS = (1, 17, 64, 65, 300)
+
+
+@pytest.mark.parametrize("S", _SEQS)
+@pytest.mark.parametrize("mask", ["causal", "window", "bidirectional"])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+def test_flash_attention_bf16_tensor_core_kernel(cuda, hd, mask, S):
+    """The bfloat16 kernel (mma.sync) against the plain version at every
+    head dim, mask and sequence length, with GQA ratios 1, 4 and 8."""
+    causal, window = _MASKS[mask]
+    G = (1, 4, 8)[(hd // 16 + len(mask) + S) % 3]
+    g = torch.Generator().manual_seed(hd * 1000 + S)
+    q, k, v = _attention_case(g, 2, S, 2 * G, 2, hd, torch.bfloat16)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = fa_ops.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("mask", list(_MASKS))
+@pytest.mark.parametrize("hd", [32, 64, 80, 128])
+def test_flash_attention_bf16_other_tile(cuda, hd, mask):
+    """The tile the kernel does not pick for itself (128 query rows, 8 warps),
+    which chip_smoke.py times against its choice, gives the same answers."""
+    causal, window = _MASKS[mask]
+    g = torch.Generator().manual_seed(hd)
+    q, k, v = _attention_case(g, 2, 300, 8, 2, hd, torch.bfloat16)
+    with torch.no_grad():
+        got = fa_ops._launch(q, k, v, causal, window, q_rows=128)
+    torch.cuda.synchronize()
+    want = fa_ops.flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("st,lanes", [(1, None), (5, None), (16, None), (16, 16), (40, None),
+                                      (128, None)])
+def test_selective_scan_lanes_and_states(cuda, st, lanes):
+    """Every lane and state instantiation, with a ragged time chunk (S 37 in
+    chunks of 8 steps, rounded up to whole groups of lanes) and di 200, not a
+    multiple of the block's channels."""
+    g = torch.Generator().manual_seed(st)
+    Bsz, S, di = 2, 37, 200
+    u = _randn(g, Bsz, S, di)
+    dt = torch.nn.functional.softplus(_randn(g, Bsz, S, di) * 0.5 - 1)
+    B, C = _randn(g, Bsz, S, st), _randn(g, Bsz, S, st)
+    A = -torch.exp(_randn(g, di, st, scale=0.3))
+    D = _randn(g, di)
+    with torch.no_grad():
+        got = ss_ops._launch(u, dt, B, C, A, D, 48, 8, lanes=lanes)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, selective_scan_ref(u, dt, B, C, A, D), **SCAN_TOL)
+
+
+def test_redesigned_kernels_refuse_what_they_do_not_take(cuda):
+    """The bfloat16 attention kernel copies 16 bytes at a time: a view that
+    starts 8 bytes into its storage raises rather than reads astray; a tile
+    or lane count the kernels were not built for raises too."""
+    n = 1 * 8 * 2 * 64
+    base = torch.randn(n + 4, device=cuda).bfloat16()
+    q = base[4:].view(1, 8, 2, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 8
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa_ops.flash_attention(q, q, q)
+    ok = torch.randn(1, 8, 2, 64, device=cuda).bfloat16()
+    with pytest.raises(ValueError, match="q_rows"):
+        fa_ops._launch(ok, ok, ok, True, 0, q_rows=32)
+    with pytest.raises(ValueError, match="q_rows"):
+        fa_ops._launch(ok.float(), ok.float(), ok.float(), True, 0, q_rows=128)
+    u = torch.randn(1, 4, 8, device=cuda)
+    rest = (torch.rand(1, 4, 8, device=cuda), torch.randn(1, 4, 40, device=cuda),
+            torch.randn(1, 4, 40, device=cuda), -torch.ones(8, 40, device=cuda),
+            torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="lanes"):
+        ss_ops._launch(u, *rest, 128, 64, lanes=4)  # 4 lanes hold at most 16 states
