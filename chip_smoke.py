@@ -5,14 +5,19 @@
 
 Builds every CUDA kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
 source, all at once), holds each against its plain PyTorch version at the
-shapes of the main path, then drives the main path: guarded split-inference
+shapes of the main path and at every variant the serving kernels' plan
+functions choose (``privacy_conv``: Cin 1 or generic, float4 or scalar
+stores; ``dp_release``: one block a row or a split row, float4 or scalar,
+with and without noise; each line prints its plan, and every
+``dp_release`` check is relaunched and must give the same bits), then
+drives the main path: guarded split-inference
 serving of the paper's COVID-CT CNN at its full published width (64x64x1
 inputs, stages 16/32/64/128/256, dense 64 -> 1, cut after stage 1) for three
 hospitals, with the privacy kernel in the client stage and a clipped
 ``DPConfig`` through the release kernel. It then serves the same trace on
 the plain path and compares, profiles the device's busy share over one
 serve, checks the card's answers against the CPU on a small trace, and times
-each kernel against its plain version.
+each serving kernel against its plain version and against the plan it beat.
 
 Then it drives the second path, the LM kernels' public entry points
 ``flash_attention`` and ``selective_scan``, at the full widths of the repo's
@@ -97,6 +102,15 @@ ATTN_CASES = (("llama3.2-1b", 4, 2048, (torch.bfloat16, torch.float32)),
               ("mixtral-8x7b", 1, 8192, (torch.bfloat16, torch.float32)),
               ("hubert-xlarge", 8, 1500, (torch.bfloat16, torch.float32)))
 SCAN_CASE = ("falcon-mamba-7b", 4, 2048)
+# privacy_conv check cases (B, H, W, Cin, Cout, noise_scale), together every
+# variant conv_plan chooses: the COVID-CT client stage (Cin 1, float4), the
+# TABLE1 one, Cin 16 and Cin 40 (generic, float4; one and three chunks of 16
+# input channels, two and three channel blocks), and Cout 5, 6, 7 (scalar;
+# Cin 3, 1 and 20) at H, W that are no multiples of the 16-pixel tile
+CONV_CASES = {"covid": (64, 64, 64, 1, 16, 0.05), "table1": (64, 32, 32, 3, 16, 0.05),
+              "cin16": (8, 32, 32, 16, 32, 0.0), "cin40": (2, 34, 16, 40, 36, 0.1),
+              "cin3_cout5": (3, 10, 14, 3, 5, 0.1), "cin1_cout6": (2, 18, 22, 1, 6, 0.1),
+              "cin20_cout7": (2, 12, 20, 20, 7, 0.1)}
 SHARES = (0.7, 0.2, 0.1)
 REQUEST_BATCH = 64  # one chest-CT study of 64 slices; the paper's batch size
 MAX_BATCH = 8
@@ -197,6 +211,30 @@ def conv_work(B, H, W, cin, cout) -> dict:
     # three max and the noise multiply-add per pooled value
     flops = B * H * W * cout * (2 * 9 * cin + 2) + out * 5
     return bound(nbytes, flops)
+
+
+def release_cases(sigma: float) -> dict:
+    """``{case: (shape, sigma)}`` of the check phase: the serving cut (k = 1)
+    and the MURA cut (k > 1) with and without noise, and F % 4 != 0 (scalar)
+    and B = 1 on each side of the split."""
+    return {"covid_sigma0": ((64, 32, 32, 16), 0.0), "covid": ((64, 32, 32, 16), sigma),
+            "mura": ((8, 112, 112, 64), sigma), "mura_sigma0": ((8, 112, 112, 64), 0.0),
+            "odd_f_split": ((2, 50001), sigma), "odd_f_split_sigma0": ((2, 50001), 0.0),
+            "odd_f": ((5, 7, 5), sigma), "odd_f_sigma0": ((5, 7, 5), 0.0),
+            "b1_split": ((1, 112, 112, 64), sigma), "b1": ((1, 100), sigma)}
+
+
+def other_release_plan(plan: dict, rows: int, feats: int, sm_count: int) -> dict:
+    """The plan that ``plan`` beat: one block a row (the parent's design)
+    where it splits rows, else the split that fills the SMs with no floor on
+    the chunk (what ``MIN_CHUNK`` rules out)."""
+    if plan["blocks_per_row"] > 1:
+        return {"why": "one block a row",
+                "plan": {**plan, "blocks_per_row": 1, "chunk": feats, "launches": 1}}
+    k = -(-sm_count // rows)
+    chunk = 4 * -(-feats // (4 * k))  # a multiple of 4, k or fewer chunks
+    return {"why": "rows split to fill the SMs, no floor on the chunk",
+            "plan": {**plan, "blocks_per_row": -(-feats // chunk), "chunk": chunk, "launches": 2}}
 
 
 def release_work(shape, sigma: float) -> dict:
@@ -336,38 +374,48 @@ def main() -> None:
     emit({"phase": "build", "wall_s": wall, "flash_attention_hmma": hmma,
           "kernels": {n: {k: v for k, v in i.items() if k != "path"} for n, i in info.items()}})
 
-    # ---- check: each kernel against its plain version on the card
+    # ---- check: each kernel against its plain version on the card, every
+    # variant that the plan functions can choose (each line names its plan)
     gen = torch.Generator().manual_seed(1)
     errs = {}
-    conv_cases = {"covid": (64, 64, 64, 1, 16, COVID_CNN.privacy_noise),
-                  "cin16": (8, 32, 32, 16, 32, 0.0)}
     conv_inputs = {}
-    for case, (B, H, W, cin, cout, scale) in conv_cases.items():
+    seen = set()
+    for case, (B, H, W, cin, cout, scale) in CONV_CASES.items():
         x, w, b, nz = conv_inputs[case] = conv_case(gen, B, H, W, cin, cout, dev)
+        plan = pc_ops.plan_for(x, w, nz, scale)
+        seen.add((plan["cin_variant"], plan["vec4"]))
         got = pc_ops.privacy_conv_forward(x, w, b, nz, scale)
         torch.cuda.synchronize()
         err = max_err(got, privacy_conv_ref(x, w, b, nz, noise_scale=scale), **KERNEL_TOL,
                       what=f"privacy_conv/{case}")
         errs[f"privacy_conv/{case}"] = err
         emit({"phase": "check", "case": f"privacy_conv/{case}", "shape": [B, H, W, cin, cout],
-              "noise_scale": scale, "max_abs_err": err, **KERNEL_TOL})
+              "noise_scale": scale, "plan": plan, "max_abs_err": err, **KERNEL_TOL})
+    if seen != {(c, v) for c in (1, 0) for v in (True, False)}:
+        raise AssertionError(f"privacy_conv variants checked {sorted(seen)}, want all four")
     sigma = DPConfig().sigma
-    release_cases = {"covid_sigma0": ((64, 32, 32, 16), 0.0),
-                     "covid": ((64, 32, 32, 16), sigma),
-                     "mura": ((8, 112, 112, 64), sigma)}
     release_inputs = {}
-    for case, (shape, s) in release_cases.items():
+    seen = set()
+    for case, (shape, s) in release_cases(sigma).items():
         x = torch.randn(shape, generator=gen).to(dev)
         nz = torch.randn(shape, generator=gen).to(dev)
         release_inputs[case] = (x, nz)
+        plan = dp_ops.plan_for(x, nz, s)
+        seen.add((plan["blocks_per_row"] > 1, plan["vec4"], s > 0))
         got = dp_ops.dp_release_forward(x, nz, 1.0, s)
+        again = dp_ops.dp_release_forward(x, nz, 1.0, s)
         torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"dp_release/{case}: a relaunch gave other bits")
         err = max_err(got, dp_release_ref(x, nz, clip_norm=1.0, sigma=s), **KERNEL_TOL,
                       what=f"dp_release/{case}")
         errs[f"dp_release/{case}"] = err
         emit({"phase": "check", "case": f"dp_release/{case}", "shape": list(shape),
-              "features": int(np.prod(shape[1:])), "sigma": s, "max_abs_err": err,
-              **KERNEL_TOL})
+              "features": int(np.prod(shape[1:])), "sigma": s, "plan": plan,
+              "bit_identical_relaunch": True, "max_abs_err": err, **KERNEL_TOL})
+    if seen != {(k, v, n) for k in (False, True) for v in (False, True) for n in (False, True)}:
+        raise AssertionError(f"dp_release plans checked {sorted(seen)}, want k = 1 and k > 1, "
+                             "float4 and scalar, each with and without noise")
 
     # ---- serve: the main path, full-width COVID-CT CNN, kernels on
     cfg = dataclasses.replace(COVID_CNN, use_kernel=True)
@@ -477,30 +525,40 @@ def main() -> None:
     # across calls, as a release's input does after the client stage.
     timed = {}
     x, w, b, nz = conv_inputs["covid"]
-    scale = conv_cases["covid"][-1]
+    scale = CONV_CASES["covid"][-1]
     conv_fns = (lambda: pc_ops.privacy_conv_forward(x, w, b, nz, scale),
                 lambda: privacy_conv_ref(x, w, b, nz, noise_scale=scale))
     k_ms, p_ms = paired_ms(*conv_fns)
     k_host, p_host = paired_ms(*conv_fns, timer=host_fed_ms)
     conv_only = cuda_ms(lambda: torch.nn.functional.conv2d(
         x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, padding=1))
+    plan = pc_ops.plan_for(x, w, nz, scale)
+    generic = {**plan, "cin_variant": 0}  # the variant the Cin = 1 one beat
+    generic_ms = paired_ms(conv_fns[0], lambda: pc_ops._launch(x, w, b, nz, scale, generic))[1]
     timed["privacy_conv"] = {"case": "privacy_conv/covid", "ms": k_ms, "plain_ms": p_ms,
                              "host_fed_ms": k_host, "plain_host_fed_ms": p_host,
+                             "plan": plan, "other_plan": {"plan": generic, "ms": generic_ms},
                              "library_ms": None,
                              "library_note": "no single PyTorch call computes conv+bias+"
                                              "ReLU+pool+noise; cudnn_conv_only_ms times "
                                              "the conv alone",
                              "cudnn_conv_only_ms": conv_only,
-                             **conv_work(*conv_cases["covid"][:5])}
+                             **conv_work(*CONV_CASES["covid"][:5])}
     for case in ("covid", "mura"):
         xr, nr = release_inputs[case]
         rel_fns = (lambda: dp_ops.dp_release_forward(xr, nr, 1.0, sigma),
                    lambda: dp_release_ref(xr, nr, clip_norm=1.0, sigma=sigma))
         k_ms, p_ms = paired_ms(*rel_fns)
         k_host, p_host = paired_ms(*rel_fns, timer=host_fed_ms)
+        plan = dp_ops.plan_for(xr, nr, sigma)
+        other = other_release_plan(plan, xr.shape[0], int(np.prod(xr.shape[1:])),
+                                   torch.cuda.get_device_properties(dev).multi_processor_count)
+        other_ms = paired_ms(rel_fns[0],
+                             lambda: dp_ops._launch(xr, nr, 1.0, sigma, other["plan"]))[1]
         timed[f"dp_release/{case}"] = {
             "case": f"dp_release/{case}", "ms": k_ms, "plain_ms": p_ms,
-            "host_fed_ms": k_host, "plain_host_fed_ms": p_host, "library_ms": None,
+            "host_fed_ms": k_host, "plain_host_fed_ms": p_host, "plan": plan,
+            "other_plan": {**other, "ms": other_ms}, "library_ms": None,
             "library_note": "no single PyTorch call computes the per-row clip and noise",
             **release_work(tuple(xr.shape), sigma)}
     for t in timed.values():

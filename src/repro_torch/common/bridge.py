@@ -5,6 +5,14 @@ A tree is nested ``dict``s, ``list``s and ``tuple``s with array leaves, as
 the JAX package's params and canonical state are. Flat keys are the
 ``"/"``-joined paths that ``repro.checkpoint.io._flatten`` writes: a dict
 key as itself, a list position as its index.
+
+bfloat16 crosses bit for bit, without ``ml_dtypes``: numpy has no bfloat16
+of its own, so a JAX bf16 array comes to numpy as ``ml_dtypes``' type
+(``dtype.name == "bfloat16"``) and the JAX checkpoint writer stores its
+bits as 2-byte void (``|V2``). Both are read as ``uint16`` bits and viewed
+as ``torch.bfloat16``; a ``torch.bfloat16`` tensor goes back to numpy as
+``|V2``, the bits the JAX writer stores. float16 is a numpy type (``<f2``),
+so a 2-byte void leaf can only be bfloat16.
 """
 from __future__ import annotations
 
@@ -28,6 +36,31 @@ def tree_map(fn: Callable[[Any], Any], tree):
     return fn(tree)
 
 
+def _is_bf16_bits(a: np.ndarray) -> bool:
+    """bfloat16 as numpy holds it: ``ml_dtypes``' type, or 2-byte void."""
+    dt = a.dtype
+    return dt.name == "bfloat16" or (dt.kind == "V" and dt.itemsize == 2
+                                     and dt.fields is None)
+
+
+def _array_to_tensor(a) -> torch.Tensor:
+    """A copy of ``a`` (anything ``np.array`` takes) as a CPU tensor of the
+    same dtype; bfloat16 (:func:`_is_bf16_bits`) keeps its bits exactly."""
+    a = np.array(a)
+    if _is_bf16_bits(a):
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _tensor_to_array(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array on the host; a bfloat16 tensor as ``|V2`` with
+    its bits unchanged, as the JAX checkpoint writer stores bfloat16."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
 def to_torch(tree, device: Optional[Union[str, torch.device]] = None):
     """Every leaf as a tensor on ``device`` (dtype kept); ``None`` means the
     card, as everywhere in the port (:func:`resolve_device`), so with no card
@@ -38,7 +71,7 @@ def to_torch(tree, device: Optional[Union[str, torch.device]] = None):
     def leaf(a):
         if isinstance(a, torch.Tensor):
             return a.to(dev)
-        return torch.from_numpy(np.array(a)).to(dev)
+        return _array_to_tensor(a).to(dev)
 
     return tree_map(leaf, tree)
 
@@ -47,7 +80,7 @@ def to_numpy(tree):
     """Every leaf as a numpy array on the host."""
     def leaf(a):
         if isinstance(a, torch.Tensor):
-            return a.detach().cpu().numpy()
+            return _tensor_to_array(a)
         return np.asarray(a)
 
     return tree_map(leaf, tree)

@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Each source ``repro_torch/csrc/<name>.cu`` exposes a plain C function
-``<name>_launch`` and compiles on its own into a shared library for
+Each source ``repro_torch/csrc/<name>.cu`` exposes plain C functions
+(:data:`SIGNATURES`) and compiles on its own into a shared library for
 ``sm_90a``; no PyTorch header is included, so a build takes seconds. The
 library goes into ``repro_torch/kernels/_build/`` (listed in
 ``.gitignore``) under a name that carries a hash of the source, so an edited
@@ -32,13 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _c_ptr, _c_int, _c_ll, _c_float = (ctypes.c_void_p, ctypes.c_int,
                                    ctypes.c_longlong, ctypes.c_float)
 # the C interface of each source, by function; every pointer and the stream
-# as c_void_p. ``<name>_launch`` is the entry point; ``flash_attention_launch_tiles``
-# and ``selective_scan_launch_lanes`` take the tile or lane choice that
-# ``<name>_launch`` makes for itself, so that it can be timed against another.
+# as c_void_p. The LM kernels' entry point ``<name>_launch`` makes its own
+# tile or lane choice, which ``flash_attention_launch_tiles`` and
+# ``selective_scan_launch_lanes`` take as an argument, so that it can be
+# timed against another. The serving kernels' ``<name>_launch_plan`` takes
+# the plan that their wrappers choose (``conv_plan``, ``release_plan``).
 SIGNATURES = {
-    "privacy_conv": {"privacy_conv_launch": (_c_ptr,) * 5 + (_c_int,) * 5 + (_c_float, _c_ptr)},
-    "dp_release": {"dp_release_launch": (_c_ptr,) * 3 + (_c_ll, _c_ll, _c_float, _c_float,
-                                                       _c_ptr)},
+    "privacy_conv": {"privacy_conv_launch_plan": (_c_ptr,) * 5 + (_c_int,) * 5
+                     + (_c_float, _c_int, _c_int, _c_int, _c_ptr)},
+    "dp_release": {"dp_release_launch_plan": (_c_ptr,) * 4 + (_c_ll, _c_ll, _c_float, _c_float,
+                                                              _c_int, _c_ll, _c_int, _c_ptr)},
     "flash_attention": {
         "flash_attention_launch": (_c_ptr,) * 4 + (_c_int,) * 8 + (_c_float, _c_ptr),
         "flash_attention_launch_tiles": (_c_ptr,) * 4 + (_c_int,) * 8 + (_c_float, _c_int,
@@ -85,8 +88,8 @@ def _demangle(names: Iterable[str]) -> Dict[str, str]:
                          timeout=60).stdout.splitlines()
     if len(out) != len(names):
         return {n: n for n in names}
-    # "void <unnamed>::kernel<(int)64, (int)4>(const float *, ...)" -> "kernel<64, 4>"
-    short = (re.sub(r"\((?:unsigned )?(?:int|long)\)|\(anonymous namespace\)::|<unnamed>::",
+    # "void <unnamed>::kernel<(int)64, (bool)1>(const float *, ...)" -> "kernel<64, 1>"
+    short = (re.sub(r"\((?:unsigned )?(?:int|long|bool)\)|\(anonymous namespace\)::|<unnamed>::",
                     "", o).split("(")[0].removeprefix("void ") for o in out)
     return dict(zip(names, short))
 

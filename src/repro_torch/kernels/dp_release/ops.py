@@ -7,10 +7,14 @@ tensor the kernel does not take, a failed build or a refused launch raises.
 :class:`DPRelease` makes it differentiable the way the JAX ``custom_vjp``
 does (``repro/kernels/dp_release/ops.py:27-48``): the forward runs the
 kernel, the backward recomputes through the plain version, and the noise
-gets no gradient. ``launches`` counts kernel launches.
+gets no gradient. ``launches`` counts kernel launches: one a call, or the
+two of a split row. :func:`release_plan` chooses how a
+shape runs from the shape and the card's SM count alone, so every branch
+can be tested on the CPU and named in a report.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -21,8 +25,61 @@ from repro_torch.kernels.dp_release.ref import dp_release_ref
 
 launches = 0
 
+THREADS = 512        # a block; fixed in the source
+MIN_CHUNK = 16384    # features a block sums at least when a row is split
 
-def _launch(x, noise, clip_norm: float, sigma: float) -> torch.Tensor:
+
+@functools.cache
+def release_plan(rows: int, feats: int, sm_count: int, aligned: bool = True) -> dict:
+    """How ``csrc/dp_release.cu`` runs ``rows`` rows of ``feats`` features
+    on a card of ``sm_count`` SMs, a pure function of them, worked out once
+    a shape (the dict is shared: copy it to change it):
+
+    - ``blocks_per_row`` k: 1 where the rows alone fill the SMs, or where a
+      row has too few features to split (under ``2 * MIN_CHUNK``); else
+      enough to fill the SMs, ``ceil(sm_count / rows)``, as far as chunks of
+      at least ``MIN_CHUNK`` allow. k > 1 runs two launches (partial sums,
+      then the release), k = 1 one.
+    - ``chunk``: features of each block's part of a row, k of them cover
+      the row once (the last may be shorter); a multiple of 4 with float4.
+    - ``vec4``: float4 loads and stores, only when ``feats % 4 == 0`` and
+      the tensors are 16-byte aligned (``aligned``); else scalar.
+    """
+    if rows < 0 or feats < 0 or sm_count < 1:
+        raise ValueError(f"no plan for {rows} rows of {feats} on {sm_count} SMs")
+    vec4 = feats % 4 == 0 and aligned
+    k = 1
+    if 0 < rows < sm_count:
+        k = max(1, min(-(-sm_count // rows), feats // MIN_CHUNK))
+    chunk = -(-feats // k)
+    if vec4:
+        chunk = -(-chunk // 4) * 4
+    if chunk:
+        k = -(-feats // chunk)
+    return {"blocks_per_row": k, "chunk": chunk, "vec4": vec4, "threads": THREADS,
+            "launches": 1 if k == 1 else 2}
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    """The SM count of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(x: torch.Tensor, noise: Optional[torch.Tensor], sigma: float) -> dict:
+    """The plan :func:`_launch` runs for these CUDA tensors: the card's SM
+    count, and float4 where ``x`` and the noise it reads are 16-byte aligned
+    (the output is a fresh allocation, which is)."""
+    read = [x] + ([noise] if sigma > 0.0 else [])
+    return release_plan(x.shape[0], math.prod(x.shape[1:]), _sm_count(x.device.index),
+                        all(t.data_ptr() % 16 == 0 for t in read))
+
+
+def _launch(x, noise, clip_norm: float, sigma: float,
+            plan: Optional[dict] = None) -> torch.Tensor:
+    """The kernel on CUDA tensors, with :func:`plan_for`'s plan unless
+    ``plan`` is given (to time one plan against another); the source
+    refuses a plan that does not fit the shape."""
     global launches
     if x.dim() < 1:
         raise ValueError("dp_release wants x [B, ...]")
@@ -38,14 +95,19 @@ def _launch(x, noise, clip_norm: float, sigma: float) -> torch.Tensor:
     feats = math.prod(x.shape[1:])
     lib = build.library("dp_release")
     out = torch.empty_like(x)
+    if plan is None:
+        plan = plan_for(x, noise, sigma)
+    k = plan["blocks_per_row"]
+    partials = torch.empty((rows, k), device=x.device, dtype=torch.float32) if k > 1 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dp_release_launch(
-            x.data_ptr(), noise.data_ptr() if use_noise else None,
-            out.data_ptr(), rows, feats, float(clip_norm), float(sigma), stream)
+        err = lib.dp_release_launch_plan(
+            x.data_ptr(), noise.data_ptr() if use_noise else None, out.data_ptr(),
+            partials.data_ptr() if partials is not None else None, rows, feats,
+            float(clip_norm), float(sigma), k, plan["chunk"], int(plan["vec4"]), stream)
     if err:
         raise RuntimeError(f"dp_release kernel launch failed: CUDA error {err}")
-    launches += 1
+    launches += 1 if k == 1 else 2
     return out
 
 

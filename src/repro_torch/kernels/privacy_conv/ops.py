@@ -8,10 +8,13 @@ raises. :class:`PrivacyConv` makes it differentiable the way the JAX
 ``custom_vjp`` does (``repro/kernels/privacy_conv/ops.py:28-50``): the
 forward runs the kernel, the backward recomputes through the plain version.
 ``launches`` counts kernel launches, so a run can show that its main path
-went through the kernel.
+went through the kernel. :func:`conv_plan` chooses the kernel's variant
+from the shapes alone, so every branch can be tested on the CPU and named
+in a report.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -21,8 +24,55 @@ from repro_torch.kernels.privacy_conv.ref import privacy_conv_ref
 
 launches = 0
 
+TILE = (8, 8)          # pooled pixels a block (rows, columns); fixed in the source
+CHANNELS_PER_THREAD = 4
+MAX_CHANNELS_PER_BLOCK = 16
+CIN_VARIANTS = (1,)  # the input widths with a variant of their own; any other is generic
 
-def _launch(x, w, b, noise, noise_scale: float) -> torch.Tensor:
+
+@functools.cache
+def conv_plan(B: int, H: int, W: int, cin: int, cout: int, aligned: bool = True) -> dict:
+    """How ``csrc/privacy_conv.cu`` runs a shape, a pure function of it,
+    worked out once a shape (the dict is shared: copy it to change it):
+
+    - ``cin_variant``: 1 (unrolled, the COVID-CT stage) or 0 (generic,
+      staging 16 input channels at a time);
+    - ``vec4``: float4 noise reads and output writes, only when
+      ``cout % 4 == 0`` and the output and noise are 16-byte aligned
+      (``aligned``); else element by element;
+    - ``channels_per_block``: output channels a block, 4 a thread, at most 16;
+    - ``threads``, ``blocks``: one thread per pooled pixel of a
+      ``TILE`` and channel group; blocks over images, tiles and channel
+      blocks.
+    """
+    if min(B, H, W) < 0 or cin < 1 or cout < 1 or H % 2 or W % 2:
+        raise ValueError(f"no plan for B={B}, H={H}, W={W}, Cin={cin}, Cout={cout}: "
+                         "want Cin, Cout >= 1 and even H, W")
+    groups = -(-cout // CHANNELS_PER_THREAD)
+    per_block = min(groups, MAX_CHANNELS_PER_BLOCK // CHANNELS_PER_THREAD)
+    tiles = -(-(H // 2) // TILE[0]) * -(-(W // 2) // TILE[1])
+    return {"cin_variant": cin if cin in CIN_VARIANTS else 0,
+            "vec4": cout % 4 == 0 and aligned,
+            "tile": TILE,
+            "channels_per_block": CHANNELS_PER_THREAD * per_block,
+            "threads": TILE[0] * TILE[1] * per_block,
+            "blocks": B * tiles * -(-groups // per_block)}
+
+
+def plan_for(x: torch.Tensor, w: torch.Tensor, noise: Optional[torch.Tensor],
+             noise_scale: float) -> dict:
+    """The plan :func:`_launch` runs for these tensors: float4 where the
+    noise it reads is 16-byte aligned (the output is a fresh allocation,
+    which is)."""
+    B, H, W, cin = x.shape
+    aligned = noise_scale <= 0.0 or noise.data_ptr() % 16 == 0
+    return conv_plan(B, H, W, cin, w.shape[-1], aligned)
+
+
+def _launch(x, w, b, noise, noise_scale: float, plan: Optional[dict] = None) -> torch.Tensor:
+    """The kernel on CUDA tensors, with :func:`plan_for`'s plan unless
+    ``plan`` is given (to time one variant against another); the source
+    refuses a plan that does not fit the shape."""
     global launches
     if x.dim() != 4 or w.dim() != 4 or b.dim() != 1:
         raise ValueError(f"want x [B,H,W,Cin], w [3,3,Cin,Cout], b [Cout]; got "
@@ -46,12 +96,15 @@ def _launch(x, w, b, noise, noise_scale: float) -> torch.Tensor:
                              f"contiguous={t.is_contiguous()}")
     lib = build.library("privacy_conv")
     out = torch.empty(out_shape, device=x.device, dtype=torch.float32)
+    if plan is None:
+        plan = plan_for(x, w, noise, noise_scale)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.privacy_conv_launch(
+        err = lib.privacy_conv_launch_plan(
             x.data_ptr(), w.data_ptr(), b.data_ptr(),
             noise.data_ptr() if use_noise else None, out.data_ptr(),
-            B, H, W, cin, cout, float(noise_scale), stream)
+            B, H, W, cin, cout, float(noise_scale), plan["cin_variant"],
+            plan["channels_per_block"], int(plan["vec4"]), stream)
     if err:
         raise RuntimeError(f"privacy_conv kernel launch failed: CUDA error {err}")
     launches += 1

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro.checkpoint.io import load_checkpoint as j_load_checkpoint
+from repro.checkpoint.io import save_checkpoint as j_save_checkpoint
 from repro.configs.paper_models import COVID_CNN
 from repro.core import SplitSession, SplitTrainConfig
 from repro.core.adapters import cnn_adapter
@@ -82,3 +83,55 @@ def test_to_torch_on_cpu_copies_arrays_and_keeps_tensors():
     assert got["stages"][1][0].dtype == torch.int32 and int(got["stages"][1][0]) == 7
     assert got["stages"][1][1] is None and isinstance(got["stages"][1], list)
     assert got["t"] is tree["t"]  # already there: not copied
+
+
+def _bf16_tree():
+    """bfloat16 leaves whose bits a float32 round trip would not keep: a
+    NaN payload, -0, the largest finite value, a subnormal, and a 0-d one."""
+    bits = np.array([0x7FC1, 0x8000, 0x7F7F, 0x0001, 0x3EAB, 0xC2F7], np.uint16)
+    rng = np.random.default_rng(4)
+    return {"w": jax.numpy.asarray(rng.standard_normal((3, 5)), jax.numpy.bfloat16),
+            "odd": [jax.lax.bitcast_convert_type(jax.numpy.asarray(bits), jax.numpy.bfloat16)],
+            "s": jax.numpy.asarray(1.5, jax.numpy.bfloat16),
+            "f": jax.numpy.ones((2,), jax.numpy.float32)}
+
+
+def _bits(a) -> np.ndarray:
+    return np.asarray(a).view(np.uint16)
+
+
+def test_to_torch_carries_bfloat16_bits():
+    tree = _bf16_tree()
+    got = to_torch(tree, "cpu")
+    for key, want in (("w", tree["w"]), ("s", tree["s"]), ("odd", tree["odd"][0])):
+        t = got[key][0] if key == "odd" else got[key]
+        assert t.dtype == torch.bfloat16 and tuple(t.shape) == want.shape, key
+        np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
+                                      _bits(want), err_msg=key)
+    assert got["f"].dtype == torch.float32
+
+
+def test_port_checkpoint_round_trips_bfloat16(tmp_path):
+    state = to_torch(_bf16_tree(), "cpu")
+    flat = flatten(state)
+    assert flat["w"].dtype == np.dtype("V2")  # the JAX writer's bits on disk
+    path = save_checkpoint(str(tmp_path), 3, state)
+    again, _ = load_checkpoint(path, device="cpu")
+    got = flatten(again)
+    assert sorted(got) == sorted(flat)
+    for k, want in flat.items():
+        assert got[k].dtype == want.dtype and got[k].shape == want.shape, k
+        assert got[k].tobytes() == want.tobytes(), k
+    assert again["w"].dtype == torch.bfloat16 and again["f"].dtype == torch.float32
+
+
+def test_jax_bfloat16_checkpoint_loads_in_port(tmp_path):
+    tree = _bf16_tree()
+    path = j_save_checkpoint(str(tmp_path), 5, tree)
+    got, manifest = load_checkpoint(path, device="cpu")
+    assert manifest["step"] == 5
+    for key, want in (("w", tree["w"]), ("s", tree["s"]), ("odd", tree["odd"][0])):
+        t = got[key][0] if key == "odd" else got[key]
+        assert t.dtype == torch.bfloat16 and tuple(t.shape) == want.shape, key
+        np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16),
+                                      _bits(want), err_msg=key)

@@ -69,3 +69,46 @@ def test_no_noise_means_no_perturbation_and_bad_device_raises():
                                dp_release_ref(x, None, clip_norm=0.5).numpy(), **TOL)
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         ops.dp_release_forward(x.to("meta"), nz.to("meta"), 1.0, 1.0)
+
+
+# (rows, features, SMs): the serving cuts, the MURA cut, one row, a row
+# just under and just over two chunks, F % 4 != 0, more rows than SMs, a
+# smaller card, and empty shapes
+PLAN_CASES = [(64, 16384, 132), (8, 802816, 132), (1, 802816, 132), (2, 50001, 132),
+              (3, 2 * ops.MIN_CHUNK - 1, 132), (3, 2 * ops.MIN_CHUNK, 132), (5, 35, 132),
+              (1, 100, 132), (200, 16384, 132), (131, 10 ** 6, 132), (7, 123457, 16),
+              (1, 4 * 132 * ops.MIN_CHUNK + 3, 132), (0, 10, 132), (3, 0, 132)]
+
+
+@pytest.mark.parametrize("rows,feats,sms", PLAN_CASES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_release_plan_chunks_cover_each_row_once(rows, feats, sms, aligned):
+    plan = ops.release_plan(rows, feats, sms, aligned)
+    k, chunk = plan["blocks_per_row"], plan["chunk"]
+    assert plan["launches"] == (1 if k == 1 else 2)
+    assert plan["vec4"] == (feats % 4 == 0 and aligned)
+    if plan["vec4"]:
+        assert chunk % 4 == 0
+    covered = np.zeros(feats, np.int64)
+    for j in range(k):  # block j's part, as the kernel cuts it
+        part = slice(j * chunk, min(feats, (j + 1) * chunk))
+        assert part.start < part.stop or feats == 0
+        covered[part] += 1
+    assert np.all(covered == 1)
+    if k > 1:
+        assert chunk >= ops.MIN_CHUNK and 0 < rows < sms
+    # B*k reaches the SM count wherever the rows or the features allow it
+    if rows >= sms or feats // ops.MIN_CHUNK >= -(-sms // max(rows, 1)):
+        assert rows * k >= sms or rows == 0
+    else:
+        assert k == max(1, feats // ops.MIN_CHUNK)
+
+
+def test_release_plan_at_the_cuts():
+    covid = ops.release_plan(64, 32 * 32 * 16, 132)
+    assert covid["blocks_per_row"] == 1 and covid["vec4"]  # one pass, one launch
+    mura = ops.release_plan(8, 112 * 112 * 64, 132)
+    assert mura["blocks_per_row"] == 17 and 8 * 17 >= 132 and mura["vec4"]
+    assert not ops.release_plan(8, 112 * 112 * 64 + 2, 132)["vec4"]
+    with pytest.raises(ValueError, match="no plan"):
+        ops.release_plan(8, 100, 0)

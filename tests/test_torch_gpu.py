@@ -52,12 +52,21 @@ def _randn(gen, *shape, scale=1.0):
     return (torch.randn(shape, generator=gen) * scale).cuda()
 
 
-@pytest.mark.parametrize("B,H,W,cin,cout,scale", [
-    (64, 64, 64, 1, 16, 0.05), (8, 32, 32, 16, 32, 0.0), (3, 10, 14, 3, 5, 0.1)])
-def test_privacy_conv_kernel(cuda, B, H, W, cin, cout, scale):
+# every variant conv_plan chooses, (Cin variant, float4): (1, yes) COVID-CT,
+# (generic, yes) TABLE1's Cin 3, Cin 16 and Cin 40 (three chunks of input
+# channels, three channel blocks), (generic, no) Cin 3 with Cout 5, Cin 20
+# and the smallest shape, (1, no) Cout 6; H and W off the 16-pixel tile
+@pytest.mark.parametrize("B,H,W,cin,cout,scale,variant", [
+    (64, 64, 64, 1, 16, 0.05, (1, True)), (64, 32, 32, 3, 16, 0.05, (0, True)),
+    (8, 32, 32, 16, 32, 0.0, (0, True)), (2, 34, 16, 40, 36, 0.1, (0, True)),
+    (3, 10, 14, 3, 5, 0.1, (0, False)), (2, 18, 22, 1, 6, 0.1, (1, False)),
+    (2, 12, 20, 20, 7, 0.1, (0, False)), (1, 2, 2, 2, 1, 0.0, (0, False))])
+def test_privacy_conv_kernel(cuda, B, H, W, cin, cout, scale, variant):
     g = torch.Generator().manual_seed(0)
     x, w = _randn(g, B, H, W, cin), _randn(g, 3, 3, cin, cout, scale=0.1)
     b, nz = _randn(g, cout, scale=0.1), _randn(g, B, H // 2, W // 2, cout)
+    plan = pc_ops.plan_for(x, w, nz, scale)
+    assert (plan["cin_variant"], plan["vec4"]) == variant
     before = pc_ops.launches
     got = pc_ops.privacy_conv_forward(x, w, b, nz, scale)
     torch.cuda.synchronize()
@@ -65,17 +74,72 @@ def test_privacy_conv_kernel(cuda, B, H, W, cin, cout, scale):
     torch.testing.assert_close(got, privacy_conv_ref(x, w, b, nz, noise_scale=scale), **TOL)
 
 
-@pytest.mark.parametrize("shape,clip,sigma", [
-    ((64, 32, 32, 16), 1.0, 0.0), ((64, 32, 32, 16), 1.0, 9.7), ((8, 112, 112, 64), 1.0, 9.7),
-    ((5, 7), 1e4, 0.5)])
-def test_dp_release_kernel(cuda, shape, clip, sigma):
+def test_privacy_conv_other_plans_and_refusals(cuda):
+    """The generic variant at Cin 1 (what chip_smoke.py times the Cin = 1
+    variant against) and a misaligned noise view (scalar) agree with the
+    plain version; a plan that does not fit the shape raises."""
+    g = torch.Generator().manual_seed(5)
+    x, w, b = _randn(g, 4, 24, 40, 1), _randn(g, 3, 3, 1, 16, scale=0.1), _randn(g, 16)
+    nz = _randn(g, 4 * 12 * 20 * 16 + 1)[1:].view(4, 12, 20, 16)
+    assert nz.data_ptr() % 16 == 4 and not pc_ops.plan_for(x, w, nz, 0.1)["vec4"]
+    want = privacy_conv_ref(x, w, b, nz, noise_scale=0.1)
+    torch.testing.assert_close(pc_ops.privacy_conv_forward(x, w, b, nz, 0.1), want, **TOL)
+    generic = {**pc_ops.conv_plan(4, 24, 40, 1, 16), "cin_variant": 0}
+    nz = nz.clone()
+    torch.testing.assert_close(pc_ops._launch(x, w, b, nz, 0.1, generic), want, **TOL)
+    for bad in ({"cin_variant": 3}, {"channels_per_block": 6}, {"channels_per_block": 32}):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            pc_ops._launch(x, w, b, nz, 0.1, {**generic, **bad})
+    with pytest.raises(RuntimeError, match="launch failed"):  # float4 with Cout 6
+        w6, b6 = w[..., :6].contiguous(), b[:6].contiguous()
+        pc_ops._launch(x, w6, b6, None, 0.0, {**generic, "vec4": True, "channels_per_block": 8})
+
+
+# every plan release_plan chooses, (k > 1, float4), each with and without
+# noise: the serving cut (k 1), the MURA cut (k 17), F % 4 != 0 split (k 3)
+# and not, B = 1 split (k 49) and not
+@pytest.mark.parametrize("shape,clip,sigma,split,vec4", [
+    ((64, 32, 32, 16), 1.0, 0.0, False, True), ((64, 32, 32, 16), 1.0, 9.7, False, True),
+    ((8, 112, 112, 64), 1.0, 9.7, True, True), ((8, 112, 112, 64), 1.0, 0.0, True, True),
+    ((2, 50001), 1.0, 9.7, True, False), ((2, 50001), 1e4, 0.0, True, False),
+    ((5, 7), 1e4, 0.5, False, False), ((5, 7, 5), 1.0, 0.0, False, False),
+    ((1, 112, 112, 64), 1.0, 9.7, True, True), ((1, 100), 1.0, 9.7, False, True)])
+def test_dp_release_kernel(cuda, shape, clip, sigma, split, vec4):
     g = torch.Generator().manual_seed(1)
     x, nz = _randn(g, *shape), _randn(g, *shape)
+    plan = dp_ops.plan_for(x, nz, sigma)
+    assert (plan["blocks_per_row"] > 1, plan["vec4"]) == (split, vec4)
     before = dp_ops.launches
     got = dp_ops.dp_release_forward(x, nz, clip, sigma)
+    again = dp_ops.dp_release_forward(x, nz, clip, sigma)
     torch.cuda.synchronize()
-    assert dp_ops.launches == before + 1
+    assert dp_ops.launches == before + 2 * plan["launches"]
+    assert torch.equal(got, again)  # partials combined in a fixed order
     torch.testing.assert_close(got, dp_release_ref(x, nz, clip_norm=clip, sigma=sigma), **TOL)
+
+
+def test_dp_release_other_plans_and_refusals(cuda):
+    """One block a row at the MURA cut and a split at the serving cut (what
+    chip_smoke.py times each plan against), and a misaligned view (scalar),
+    agree with the plain version; a plan that does not fit raises."""
+    g = torch.Generator().manual_seed(6)
+    for shape, k in (((8, 112, 112, 64), 1), ((64, 32, 32, 16), 3)):
+        x, nz = _randn(g, *shape), _randn(g, *shape)
+        feats = x[0].numel()
+        chunk = 4 * -(-feats // (4 * k))
+        plan = {**dp_ops.plan_for(x, nz, 9.7), "blocks_per_row": k, "chunk": chunk}
+        torch.testing.assert_close(dp_ops._launch(x, nz, 1.0, 9.7, plan),
+                                   dp_release_ref(x, nz, clip_norm=1.0, sigma=9.7), **TOL)
+    x = _randn(g, 3 * 40000 + 1)[1:].view(3, 40000)
+    assert x.data_ptr() % 16 == 4 and not dp_ops.plan_for(x, None, 0.0)["vec4"]
+    torch.testing.assert_close(dp_ops.dp_release_forward(x, None, 1.0),
+                               dp_release_ref(x, None, clip_norm=1.0), **TOL)
+    x = x.clone()
+    good = dp_ops.plan_for(x, None, 0.0)
+    for bad in ({"vec4": True, "chunk": 20001}, {"blocks_per_row": 1, "chunk": 100},
+                {"blocks_per_row": 5, "chunk": 20000}):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            dp_ops._launch(x, None, 1.0, 0.0, {**good, **bad})
 
 
 def test_kernels_refuse_what_they_do_not_take(cuda):

@@ -1,6 +1,7 @@
 """The port stands alone: every module of ``repro_torch`` and
-``chip_smoke.py`` imports with ``jax`` and ``repro`` blocked, and the smoke
-script refuses to run without a CUDA card."""
+``chip_smoke.py`` imports with ``jax``, ``repro`` and ``ml_dtypes`` blocked,
+the bridge carries bfloat16 bits with them blocked, and the smoke script
+refuses to run without a CUDA card."""
 import os
 import subprocess
 import sys
@@ -10,16 +11,23 @@ ENV = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
 
 BLOCKED_IMPORTS = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "repro"):
+for name in ("jax", "jaxlib", "repro", "ml_dtypes"):
     sys.modules[name] = None  # any import of them, or below them, now fails
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+import numpy as np, torch
+from repro_torch.common.bridge import to_numpy, to_torch
+bits = np.array([0x3F80, 0x7FC1, 0x8000], np.uint16)
+t = to_torch({"a": bits.view("V2")}, "cpu")["a"]
+assert t.dtype == torch.bfloat16 and t.view(torch.int16).numpy().view(np.uint16).tolist() == bits.tolist()
+back = to_numpy({"a": t})["a"]
+assert back.dtype == np.dtype("V2") and back.tobytes() == bits.tobytes()
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 loaded = [m for m, v in sys.modules.items() if v is not None
-          and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+          and (m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))]
 assert not loaded, loaded
 print(len(names))
 """

@@ -77,3 +77,36 @@ def test_plain_path_and_argument_checks():
     # neither CPU nor CUDA: no path, and nothing falls back
     with pytest.raises(ValueError, match="CUDA or the CPU"):
         ops.privacy_conv_forward(*(t.to("meta") for t in (x, w, b, nz)), 0.1)
+
+
+# (B, H, W, Cin, Cout): the COVID-CT and TABLE1 client stages, Cin 16, Cout
+# not a multiple of 4, H and W not multiples of the 16-pixel tile, Cin past
+# the generic variant's 16-channel chunk, Cout past one block's 16 channels
+PLAN_SHAPES = [(64, 64, 64, 1, 16), (64, 32, 32, 3, 16), (8, 32, 32, 16, 32), (3, 10, 14, 3, 5),
+               (2, 18, 22, 1, 6), (2, 12, 20, 20, 7), (1, 2, 2, 2, 1), (2, 34, 16, 40, 36)]
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout", PLAN_SHAPES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_conv_plan_covers_the_output(B, H, W, cin, cout, aligned):
+    plan = ops.conv_plan(B, H, W, cin, cout, aligned)
+    assert plan["cin_variant"] == (1 if cin == 1 else 0)
+    assert plan["vec4"] == (cout % 4 == 0 and aligned)
+    cpb = plan["channels_per_block"]
+    assert cpb % 4 == 0 and 4 <= cpb <= 16 and cpb <= -(-cout // 4) * 4
+    assert plan["threads"] == plan["tile"][0] * plan["tile"][1] * cpb // 4
+    th, tw = plan["tile"]
+    tiles = -(-(H // 2) // th) * -(-(W // 2) // tw)
+    # every (image, pooled pixel, channel) in exactly one block's tile
+    assert plan["blocks"] == B * tiles * -(-cout // cpb)
+    assert tiles * th * tw >= (H // 2) * (W // 2) and -(-cout // cpb) * cpb >= cout
+
+
+def test_every_conv_variant_is_reachable():
+    seen = {(p["cin_variant"], p["vec4"]) for p in
+            (ops.conv_plan(*s) for s in PLAN_SHAPES)}
+    assert seen == {(c, v) for c in (1, 0) for v in (True, False)}
+    with pytest.raises(ValueError, match="no plan"):
+        ops.conv_plan(1, 9, 8, 1, 4)
+    with pytest.raises(ValueError, match="no plan"):
+        ops.conv_plan(1, 8, 8, 0, 4)
