@@ -9,7 +9,10 @@ shapes of the main path and at every variant the serving kernels' plan
 functions choose (``privacy_conv``: Cin 1 or generic, float4 or scalar
 stores; ``dp_release``: one block a row or a split row, float4 or scalar,
 with and without noise; each line prints its plan, and every
-``dp_release`` check is relaunched and must give the same bits), then
+``dp_release`` check is relaunched and must give the same bits) and at the
+training path's shapes (a client's ``[21, 64, 64, 1]`` batch; the
+``[63, 32, 32, 16]`` and ``[63, 112, 112, 64]`` releases, with and without
+noise), then
 drives the main path: guarded split-inference
 serving of the paper's COVID-CT CNN at its full published width (64x64x1
 inputs, stages 16/32/64/128/256, dense 64 -> 1, cut after stage 1) for three
@@ -19,7 +22,24 @@ the plain path and compares, profiles the device's busy share over one
 serve, checks the card's answers against the CPU on a small trace, and times
 each serving kernel against its plain version and against the plan it beat.
 
-Then it drives the second path, the LM kernels' public entry points
+Then it drives the training path, the paper's experiment through
+``SplitSession.fit`` on the card: the COVID-CT CNN at its published width
+trained e2e by three hospitals with ``privacy_conv`` in every client stage
+(3 launches a step) and the guard's ``dp_release`` (one call a step over
+the 63 rows), counted apart from ``evaluate``, with the plans that ran, the
+budget, a save/restore round trip that continues bit for bit, and every
+step of a kernel run retaken from the same state by the plain path on the
+card and on the CPU at the calibrated sigma, and by the plain path on the
+card at sigma 0, where the features are not drowned in noise (the gate:
+metrics within ``TRAIN_TOL``, gradients within ``GRAD_TOL``); MURA VGG19
+at 224x224 trained detached with ``dp_release`` at the
+``[63, 112, 112, 64]`` cut, its first step's loss against the plain
+guard's; the README quickstart in torch; and the steps per second of the
+COVID-CT step with the kernels on and off, with the kernels' device time a
+step. The ``kernels`` line gives each kernel's launches on the serving path
+and on the training path.
+
+Then it drives the LM path, the LM kernels' public entry points
 ``flash_attention`` and ``selective_scan``, at the full widths of the repo's
 LM configs (llama3.2-1b, mixtral-8x7b with its sliding window,
 hubert-xlarge bidirectional with a ragged S, falcon-mamba-7b's scan), holds
@@ -32,14 +52,17 @@ with every ported kernel. The last line is ``{"ok": true, "device": ...}``.
 Any failed phase raises and the script exits non-zero; so does a machine
 without a CUDA card. The weights are random, drawn from seed 0. TF32 is off
 for cuDNN and matmuls, so every comparison is float32 against float32.
+Checkpoints go to a temporary directory under ``build/``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -50,9 +73,23 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from repro_torch.configs import COVID_CNN, get_config  # noqa: E402
-from repro_torch.core.adapters import cnn_adapter  # noqa: E402
-from repro_torch.data import make_covid_ct, split_clients  # noqa: E402
+from repro_torch.common.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.configs import CHOLESTEROL_MLP, COVID_CNN, MURA_VGG19, get_config  # noqa: E402
+from repro_torch.core import SplitSession, SplitTrainConfig  # noqa: E402
+from repro_torch.core.adapters import cnn_adapter, mlp_adapter  # noqa: E402
+from repro_torch.core.trainer import (  # noqa: E402
+    SamplePlan,
+    device_put_shards,
+    make_epoch_runner,
+    make_sample_plan,
+)
+from repro_torch.data import (  # noqa: E402
+    make_cholesterol,
+    make_covid_ct,
+    make_mura,
+    split_clients,
+    train_val_test_split,
+)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.dp_release import ops as dp_ops  # noqa: E402
 from repro_torch.kernels.dp_release.ref import dp_release_ref  # noqa: E402
@@ -62,6 +99,7 @@ from repro_torch.kernels.privacy_conv import ops as pc_ops  # noqa: E402
 from repro_torch.kernels.privacy_conv.ref import privacy_conv_ref  # noqa: E402
 from repro_torch.kernels.selective_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.privacy import DPConfig, PrivacyGuard  # noqa: E402
 from repro_torch.serving import SplitInferenceServer, poisson_trace  # noqa: E402
 
@@ -106,14 +144,31 @@ SCAN_CASE = ("falcon-mamba-7b", 4, 2048)
 # variant conv_plan chooses: the COVID-CT client stage (Cin 1, float4), the
 # TABLE1 one, Cin 16 and Cin 40 (generic, float4; one and three chunks of 16
 # input channels, two and three channel blocks), and Cout 5, 6, 7 (scalar;
-# Cin 3, 1 and 20) at H, W that are no multiples of the 16-pixel tile
-CONV_CASES = {"covid": (64, 64, 64, 1, 16, 0.05), "table1": (64, 32, 32, 3, 16, 0.05),
+# Cin 3, 1 and 20) at H, W that are no multiples of the 16-pixel tile;
+# "train_covid" is a client's batch of train_covid's step (21 of 63 rows)
+CONV_CASES = {"covid": (64, 64, 64, 1, 16, 0.05), "train_covid": (21, 64, 64, 1, 16, 0.05),
+              "table1": (64, 32, 32, 3, 16, 0.05),
               "cin16": (8, 32, 32, 16, 32, 0.0), "cin40": (2, 34, 16, 40, 36, 0.1),
               "cin3_cout5": (3, 10, 14, 3, 5, 0.1), "cin1_cout6": (2, 18, 22, 1, 6, 0.1),
               "cin20_cout7": (2, 12, 20, 20, 7, 0.1)}
 SHARES = (0.7, 0.2, 0.1)
 REQUEST_BATCH = 64  # one chest-CT study of 64 slices; the paper's batch size
 MAX_BATCH = 8
+# training: per-step losses and every leaf of the trained state, the kernel
+# run against the plain run on the card and against the CPU (TF32 off):
+# float32 sums in another order (the kernels', cuDNN's and the CPU's)
+# carried through ten steps of the trunk, its backward and AdamW, the
+# serving tolerance of the logits
+TRAIN_TOL = dict(atol=1e-4, rtol=1e-4)
+COVID_EPOCHS, COVID_STEPS = 2, 5  # train_covid: 2 epochs of 5 steps
+MURA_STEPS = 3
+TIME_ROUNDS = 5  # train_time: epochs a path, in turns
+ADAM_B1 = 0.9  # adamw's default first-moment decay
+# gradients of one step from one state, relative L2 error: float32 rounding
+# alone gives ~1e-6; each ReLU or max-pool decision that the rounding flips
+# moves one position's contribution, a few sparse elements (the CPU against
+# an H100 at one step: 78 of 458,305 elements apart by up to 5.6e-5)
+GRAD_TOL = 1e-3
 
 
 def emit(obj) -> None:
@@ -215,10 +270,16 @@ def conv_work(B, H, W, cin, cout) -> dict:
 
 def release_cases(sigma: float) -> dict:
     """``{case: (shape, sigma)}`` of the check phase: the serving cut (k = 1)
-    and the MURA cut (k > 1) with and without noise, and F % 4 != 0 (scalar)
-    and B = 1 on each side of the split."""
+    and the MURA cut (k > 1) with and without noise, the training path's
+    releases (63 rows a step: train_covid's cut, k = 1, and train_mura's,
+    k = 3) with and without noise, and F % 4 != 0 (scalar) and B = 1 on
+    each side of the split."""
     return {"covid_sigma0": ((64, 32, 32, 16), 0.0), "covid": ((64, 32, 32, 16), sigma),
             "mura": ((8, 112, 112, 64), sigma), "mura_sigma0": ((8, 112, 112, 64), 0.0),
+            "train_covid": ((63, 32, 32, 16), sigma),
+            "train_covid_sigma0": ((63, 32, 32, 16), 0.0),
+            "train_mura": ((63, 112, 112, 64), sigma),
+            "train_mura_sigma0": ((63, 112, 112, 64), 0.0),
             "odd_f_split": ((2, 50001), sigma), "odd_f_split_sigma0": ((2, 50001), 0.0),
             "odd_f": ((5, 7, 5), sigma), "odd_f_sigma0": ((5, 7, 5), 0.0),
             "b1_split": ((1, 112, 112, 64), sigma), "b1": ((1, 100), sigma)}
@@ -336,6 +397,301 @@ def scan_work(B, S, di, st) -> dict:
     # per state: dt*A, exp, dA*h, dtu*B, +, h*C and its sum; per channel:
     # dt*u, D*u, +
     return bound(nbytes, B * S * di * (8 * st + 3))
+
+
+def tree_diff(a, b) -> float:
+    """The largest absolute difference between two trees of tensors."""
+    return max(float((x.detach().cpu() - y.detach().cpu()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def reset_counts() -> None:
+    pc_ops.launches = dp_ops.launches = 0
+    pc_ops.plans.clear()
+    dp_ops.plans.clear()
+
+
+def kernel_counts() -> dict:
+    """Launches and the plans run since :func:`reset_counts`."""
+    return {name: {"launches": ops.launches,
+                   "plans": [{"plan": dict(k), "calls": n} for k, n in ops.plans.items()]}
+            for name, ops in (("privacy_conv", pc_ops), ("dp_release", dp_ops))}
+
+
+def covid_session(on: bool, device, noise_scale=None) -> SplitSession:
+    """The COVID-CT CNN at its published width, trained e2e with the guard
+    at epsilon 1 (examples/covid_ct_split.py: server batch 64, adamw(1e-3));
+    ``on`` routes the client stage and the release through the kernels;
+    ``noise_scale`` pins the guard's sigma (``None``: calibrated to epsilon)."""
+    cfg = dataclasses.replace(COVID_CNN, use_kernel=on)
+    dp = DPConfig(epsilon=1.0, delta=1e-5, clip_norm=1.0, use_kernel=on,
+                  noise_scale=noise_scale)
+    tc = SplitTrainConfig(server_batch=64, mode="e2e", privacy=dp)
+    return SplitSession(cnn_adapter(cfg), tc, adamw(1e-3), engine="auto", seed=0, device=device)
+
+
+def step_losses(session) -> list:
+    return [float(v) for m in session.step_metrics for v in m["loss"]]
+
+
+def train_covid(dev, smi: str, tmp: str) -> dict:
+    """The phases ``train_covid``, ``train_restore`` and ``train_forced``:
+    the training main path with both kernels, counted; a save/restore round
+    trip; and each step of a kernel run retaken by the plain path on the
+    card and on the CPU at the calibrated sigma, and on the card at sigma
+    0. cuDNN runs
+    in its deterministic mode throughout, so that a rerun gives the same
+    bits. Returns the path's launch counts."""
+    shards = split_clients(*make_covid_ct(600, hw=64, seed=0), shares=SHARES)
+    xt, yt = make_covid_ct(128, hw=64, seed=1)
+    n = COVID_EPOCHS * COVID_STEPS
+    torch.backends.cudnn.deterministic = True  # until the end of train_forced
+    session = covid_session(True, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    session.fit(shards, epochs=COVID_EPOCHS, steps_per_epoch=COVID_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = kernel_counts()
+    # one privacy_conv launch a client a step; one dp_release call a step
+    # over the 3 x 21 rows (one launch at k = 1, two at k > 1)
+    (release,) = ran["dp_release"]["plans"]
+    (conv,) = ran["privacy_conv"]["plans"]
+    want = {"privacy_conv": 3 * n, "dp_release": n * release["plan"]["launches"]}
+    got = {k: v["launches"] for k, v in ran.items()}
+    if got != want or release["calls"] != n or conv["calls"] != 3 * n:
+        raise AssertionError(f"training launches {ran}, want {want}")
+    losses = step_losses(session)
+    if len(losses) != n or not np.isfinite(losses).all():
+        raise AssertionError(f"per-step losses {losses}")
+    report = session.privacy_report()
+    if report["releases"] != n:
+        raise AssertionError(f"budget counts {report['releases']} releases, want {n}")
+    path = session.save(os.path.join(tmp, "covid"))
+    reset_counts()
+    ev = session.evaluate(xt, yt)
+    eval_counts = {k: v["launches"] for k, v in kernel_counts().items()}
+    if eval_counts != {"privacy_conv": 3, "dp_release": 0}:  # a bank a pass, no release
+        raise AssertionError(f"evaluate launches {eval_counts}")
+    emit({"phase": "train_covid", "card": smi, "model": COVID_CNN.name, "mode": "e2e",
+          "engine": "auto", "epochs": COVID_EPOCHS, "steps_per_epoch": COVID_STEPS,
+          "rows_per_step": 63, "sigma": report["sigma"], "tf32": False, "wall_s": wall,
+          "step_losses": losses, "launches": got, "plans": ran,
+          "privacy": {k: report[k] for k in ("releases", "basic_epsilon", "advanced_epsilon",
+                                             "epsilon_basic_carried")},
+          "evaluate": {k: ev[k] for k in ("loss", "accuracy")}, "evaluate_launches": eval_counts})
+
+    # ---- train_restore: the run continues one epoch; a session restored
+    # from its checkpoint continues the same epoch, bit for bit (cuDNN in
+    # its deterministic mode for this phase)
+    session.fit(shards, epochs=1, steps_per_epoch=COVID_STEPS)
+    restored = covid_session(True, dev)
+    manifest = restored.restore(path)
+    restored.fit(shards, epochs=1, steps_per_epoch=COVID_STEPS)
+    a, b = session.state, restored.state
+    if not all(torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b))):
+        raise AssertionError(f"the restored run differs: max abs err {tree_diff(b, a)}")
+    if (step_losses(restored) != step_losses(session)
+            or manifest["metadata"]["epochs_done"] != COVID_EPOCHS):
+        raise AssertionError("restored losses or epoch count differ")
+    emit({"phase": "train_restore", "epochs_done_restored": manifest["metadata"]["epochs_done"],
+          "bit_identical": True, "step_losses": step_losses(restored),
+          "releases": restored.privacy_report()["releases"]})
+
+    forced = {"calibrated": train_forced(dev, shards, None, ("plain_card", "cpu")),
+              "sigma0": train_forced(dev, shards, 0.0, ("plain_card",))}
+    torch.backends.cudnn.deterministic = False
+    return {"covid": want, "shards": shards, "forced": forced}
+
+
+def train_forced(dev, shards, noise_scale, against) -> dict:
+    """``train_forced``: the gate of the kernel run against the plain run on
+    the card (``"plain_card"``) and on the CPU (``"cpu"``), the paths named
+    in ``against``. Along a kernel run of 10 steps (one CPU plan), every
+    path takes each step from the SAME state, and is held to:
+
+    - its loss, accuracy and gradient norm within TRAIN_TOL of the kernel
+      step's;
+    - its gradient (read back from AdamW's first moment, ``(mu' - b1 mu) /
+      (1 - b1)``) within GRAD_TOL of the kernel step's in relative L2 norm.
+
+    ``noise_scale`` pins the guard's sigma (``None``: calibrated). At the
+    calibrated sigma (9.69) the guard's noise, of norm about 1240 a row,
+    swamps the clipped features (norm 1), so a kernel that lost the signal
+    would move the loss less than TRAIN_TOL; at sigma 0 the loss follows
+    the features, and the kernels are held against the plain path on the
+    card, where nothing else differs. The card against the CPU is held at
+    the calibrated sigma; at sigma 0 their gradients part by more than
+    GRAD_TOL (PERF.md §6). The weights are not compared: AdamW's normalized step
+    moves a weight by up to lr where a flipped ReLU or pool decision moved
+    its gradient, whatever the gradient's size.
+    """
+    n = COVID_EPOCHS * COVID_STEPS
+    paths = {"kernel": (True, dev), "plain_card": (False, dev),
+             "cpu": (False, torch.device("cpu"))}
+    paths = {k: v for k, v in paths.items() if k == "kernel" or k in against}
+    runs = {}
+    for name, (on, where) in paths.items():
+        sess = covid_session(on, where, noise_scale)
+        _, run = make_epoch_runner(sess.adapter, sess.config, sess.opt, 1, device=where)
+        runs[name] = (run, device_put_shards(shards, where), where)
+    state = covid_session(True, dev, noise_scale).state
+    data_x, _, lens = device_put_shards(shards, "cpu")
+    plan = make_sample_plan(sess.adapter, sess.config, n)(
+        lens, tuple(data_x.shape[2:]), torch.Generator().manual_seed(5), "cpu")
+    worst = {name: {"metrics": 0.0, "grad_rel_l2": 0.0, "grad_max_abs_err": 0.0}
+             for name in paths if name != "kernel"}
+    cut = lambda a: None if a is None else a[t:t + 1]  # noqa: E731
+    losses = []
+    reset_counts()
+    for t in range(n):
+        step = SamplePlan(cut(plan.idx), cut(plan.model_noise), cut(plan.guard_noise))
+        out = {}
+        for name, (run, (data_x, data_y, _), where) in runs.items():
+            s0 = tree_map(lambda a: a.to(where), state)
+            out[name] = run(s0, data_x, data_y, step.to(where))
+        k_state, k_m = out["kernel"]
+        losses.append(float(k_m["loss"].reshape(-1)[0]))
+        mu0 = state["opt"]["mu"].cpu()
+        k_grad = (k_state["opt"]["mu"].cpu() - ADAM_B1 * mu0) / (1 - ADAM_B1)
+        for name, w in worst.items():
+            o_state, o_m = out[name]
+            for key in k_m:
+                w["metrics"] = max(w["metrics"], max_err(o_m[key].cpu(), k_m[key].cpu(),
+                                                         **TRAIN_TOL, what=f"{name} {key} {t}"))
+            o_grad = (o_state["opt"]["mu"].cpu() - ADAM_B1 * mu0) / (1 - ADAM_B1)
+            rel = float((o_grad - k_grad).norm() / k_grad.norm())
+            if not rel <= GRAD_TOL:
+                raise AssertionError(f"{name} step {t}: gradient relative L2 error {rel}")
+            w["grad_rel_l2"] = max(w["grad_rel_l2"], rel)
+            w["grad_max_abs_err"] = max(w["grad_max_abs_err"],
+                                        float((o_grad - k_grad).abs().max()))
+        state = k_state
+    launches = {"privacy_conv": pc_ops.launches, "dp_release": dp_ops.launches}
+    if launches != {"privacy_conv": 3 * n, "dp_release": n}:
+        raise AssertionError(f"forced steps launched {launches}")
+    sigma = PrivacyGuard(sess.config.privacy).sigma
+    emit({"phase": "train_forced", "sigma": sigma, "steps": n, "kernel_launches": launches,
+          "kernel_step_losses": losses,
+          "max_err": worst, "tf32": False,
+          "cudnn_deterministic": torch.backends.cudnn.deterministic, "grad_tol": GRAD_TOL,
+          **TRAIN_TOL})
+    return worst
+
+
+def train_mura(dev, smi: str) -> dict:
+    """MURA VGG19 at 224x224, detached, the guard through dp_release at the
+    [b, 112, 112, 64] cut (examples/mura_xray.py: server batch 64,
+    adamw(1e-3)); its first stage has two convs, so the privacy layer runs
+    the plain convs even with use_kernel, as in the JAX package."""
+    cfg = dataclasses.replace(MURA_VGG19, use_kernel=True)
+    shards = split_clients(*make_mura(150, hw=cfg.input_hw[0], seed=0), shares=SHARES)
+    cut = cnn_adapter(cfg).feature_shape((63,) + cfg.input_hw + (cfg.in_channels,))
+
+    def session(on):
+        tc = SplitTrainConfig(server_batch=64, mode="detached",
+                              privacy=DPConfig(clip_norm=1.0, use_kernel=on))
+        return SplitSession(cnn_adapter(cfg), tc, adamw(1e-3), engine="auto", seed=0,
+                            device=dev)
+
+    kernel = session(True)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    kernel.fit(shards, epochs=1, steps_per_epoch=MURA_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = kernel_counts()
+    (release,) = ran["dp_release"]["plans"]
+    want = {"privacy_conv": 0, "dp_release": MURA_STEPS * release["plan"]["launches"]}
+    got = {k: v["launches"] for k, v in ran.items()}
+    if got != want or release["calls"] != MURA_STEPS:
+        raise AssertionError(f"MURA launches {ran}, want {want}")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    if release["plan"] != dp_ops.release_plan(cut[0], math.prod(cut[1:]), sm_count):
+        raise AssertionError(f"the release ran {release}, not the plan of the {cut} cut")
+    losses = step_losses(kernel)
+    del kernel
+    plain = session(False)
+    plain.fit(shards, epochs=1, steps_per_epoch=MURA_STEPS)
+    plain_losses = step_losses(plain)
+    del plain
+    torch.cuda.empty_cache()
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"MURA losses {losses}")
+    err = max_err(torch.tensor(losses[:1]), torch.tensor(plain_losses[:1]), **TRAIN_TOL,
+                  what="MURA first-step loss")
+    emit({"phase": "train_mura", "card": smi, "model": MURA_VGG19.name, "mode": "detached",
+          "steps": MURA_STEPS, "cut": list(cut), "wall_s": wall,
+          "step_losses": losses, "plain_guard_step_losses": plain_losses,
+          "max_abs_err_first_loss": err, "launches": got, "plans": ran, **TRAIN_TOL})
+    return want
+
+
+def quickstart(dev) -> None:
+    """The README quickstart in torch, on the card."""
+    x, y = make_cholesterol(500, seed=0)
+    train, _val, test = train_val_test_split(x, y)
+    shards = split_clients(*train, shares=SHARES)
+    session = SplitSession(
+        mlp_adapter(CHOLESTEROL_MLP),
+        SplitTrainConfig(n_clients=3, data_shares=SHARES, server_batch=128),
+        adamw(3e-3), engine="auto", device=dev)
+    session.fit(shards, epochs=20, steps_per_epoch=10)
+    metrics = session.evaluate(*test)
+    got = {k: metrics[k] for k in ("msle", "rmsle", "smape")}
+    if not np.isfinite(list(got.values())).all() or len(session.history) != 20:
+        raise AssertionError(f"quickstart metrics {got}")
+    emit({"phase": "quickstart", **got, "releases": session.privacy_report()["releases"],
+          "first_epoch_loss": session.history[0]["loss"],
+          "last_epoch_loss": session.history[-1]["loss"]})
+
+
+def train_time(dev, smi: str, shards) -> dict:
+    """Steps per second of train_covid's step, kernels on and off, epochs
+    in turns on one state and one pre-drawn plan (the plan's draws are not
+    timed), and the device time of the two kernels a step from the
+    profiler."""
+    runs = {}
+    for on in (True, False):
+        sess = covid_session(on, dev)
+        _, run = make_epoch_runner(sess.adapter, sess.config, sess.opt, COVID_STEPS,
+                                   device=dev)
+        runs["kernel" if on else "plain"] = (run, sess.state)
+    data_x, data_y, lens = device_put_shards(shards, dev)
+    plan = make_sample_plan(sess.adapter, sess.config, COVID_STEPS)(
+        lens, tuple(data_x.shape[2:]), torch.Generator().manual_seed(5), dev)
+
+    def epoch(name):
+        run, state = runs[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(state, data_x, data_y, plan)
+        torch.cuda.synchronize()
+        return COVID_STEPS / (time.perf_counter() - t0)
+
+    for name in runs:
+        epoch(name)  # warm-up
+    rates = {"kernel": [], "plain": []}
+    for r in range(TIME_ROUNDS):
+        for name in (("kernel", "plain") if r % 2 else ("plain", "kernel")):
+            rates[name].append(epoch(name))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        epoch("kernel")
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    per_step = {k: sum(e.self_device_time_total for e in dev_events if k in e.key)
+                / 1e3 / COVID_STEPS for k in ("privacy_conv", "dp_release")}
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3 / COVID_STEPS
+    emit({"phase": "train_time", "card": smi, "tf32": False, "steps_per_epoch": COVID_STEPS,
+          "rounds": TIME_ROUNDS,
+          **{f"{k}_steps_per_s": float(np.median(v)) for k, v in rates.items()},
+          **{f"{k}_steps_per_s_all": v for k, v in rates.items()},
+          "kernel_device_ms_per_step": per_step, "device_busy_ms_per_step": busy,
+          "top": [{"name": e.key[:90], "count": e.count,
+                   "device_ms": e.self_device_time_total / 1e3}
+                  for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]]})
+    return per_step
 
 
 def covid_state(adapter, dev):
@@ -544,7 +900,14 @@ def main() -> None:
                                              "the conv alone",
                              "cudnn_conv_only_ms": conv_only,
                              **conv_work(*CONV_CASES["covid"][:5])}
-    for case in ("covid", "mura"):
+    xt_, wt_, bt_, nzt_ = conv_inputs["train_covid"]
+    k_ms, p_ms = paired_ms(lambda: pc_ops.privacy_conv_forward(xt_, wt_, bt_, nzt_, scale),
+                           lambda: privacy_conv_ref(xt_, wt_, bt_, nzt_, noise_scale=scale))
+    timed["privacy_conv/train_covid"] = {
+        "case": "privacy_conv/train_covid", "ms": k_ms, "plain_ms": p_ms,
+        "plan": pc_ops.plan_for(xt_, wt_, nzt_, scale), "library_ms": None,
+        **conv_work(*CONV_CASES["train_covid"][:5])}
+    for case in ("covid", "mura", "train_mura"):
         xr, nr = release_inputs[case]
         rel_fns = (lambda: dp_ops.dp_release_forward(xr, nr, 1.0, sigma),
                    lambda: dp_release_ref(xr, nr, clip_norm=1.0, sigma=sigma))
@@ -565,7 +928,16 @@ def main() -> None:
         t["bound_share"] = t["bound_ms"] / t["ms"]
         emit({"phase": "time", "card": smi, **t})
 
-    # ==== the second path: the LM kernels' entry points at the configs' widths
+    # ==== the training path: SplitSession.fit of the paper's three models
+    build_dir = os.path.join(HERE, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        covid = train_covid(dev, smi, tmp)
+    mura_launches = train_mura(dev, smi)
+    quickstart(dev)
+    train_device_ms = train_time(dev, smi, covid["shards"])
+
+    # ==== the LM path: the LM kernels' entry points at the configs' widths
     attn = {}
     for i, (name, B, S, dtypes) in enumerate(ATTN_CASES):
         for dt_ in dtypes:
@@ -707,11 +1079,21 @@ def main() -> None:
          "src/repro/kernels/selective_scan/kernel.py:53", f"selective_scan/{sname}",
          timed["selective_scan"], lm_launches),
     ]
+    training = {"privacy_conv": {"train_covid": covid["covid"]["privacy_conv"], "train_mura": 0},
+                "dp_release": {"train_covid": covid["covid"]["dp_release"],
+                               "train_mura": mura_launches["dp_release"]}}
+    # device ms a call at a training shape (a client's batch; MURA's cut)
+    training_ms = {"privacy_conv": timed["privacy_conv/train_covid"],
+                   "dp_release": timed["dp_release/train_mura"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep_line,
          "launches": counts[name], "max_abs_err": errs[case], "ms": t["ms"],
          "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-         "library_ms": t["library_ms"]}
+         "library_ms": t["library_ms"],
+         "launches_training": training.get(name, {"train_covid": 0, "train_mura": 0}),
+         "training_device_ms_per_step": train_device_ms.get(name),
+         "training_case": training_ms[name]["case"] if name in training_ms else None,
+         "training_ms": training_ms[name]["ms"] if name in training_ms else None}
         for name, src, rep_line, case, t, counts in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

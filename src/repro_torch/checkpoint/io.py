@@ -47,17 +47,51 @@ def save_checkpoint(directory: str, step: int, tree: Any,
     return path
 
 
-def load_checkpoint(path: str, device=None) -> Tuple[Any, dict]:
-    """Restore the tree by its keys, as tensors on ``device`` (``None``:
-    the card). Returns ``(tree, manifest)``; raises when the npz and the
-    manifest disagree on the keys."""
+def _restore_like(like, flat: dict, device, read: set, prefix: str = ""):
+    """``like``'s structure (and each leaf's dtype) with the leaves of
+    ``flat``, the ``"/"``-keyed arrays of a checkpoint, on ``device``. Adds
+    every key it looks up to ``read``; a key that ``flat`` lacks gives a
+    ``None`` leaf, for the caller to report."""
+    if isinstance(like, (dict, list, tuple)):
+        items = like.items() if isinstance(like, dict) else enumerate(like)
+        kids = {k: _restore_like(v, flat, device, read, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in items}
+        return kids if isinstance(like, dict) else type(like)(kids.values())
+    if like is None:
+        return None
+    read.add(prefix)
+    arr = flat.get(prefix)
+    if arr is None:
+        return None
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"shape mismatch at {prefix}: {arr.shape} vs {tuple(like.shape)}")
+    return to_torch(arr, device).to(like.dtype)
+
+
+def load_checkpoint(path: str, device=None, like: Any = None) -> Tuple[Any, dict]:
+    """Restore the tree as tensors on ``device`` (``None``: the card).
+    Returns ``(tree, manifest)``; raises when the npz and the manifest
+    disagree on the keys. Without ``like`` the tree is rebuilt from the keys
+    alone (``common.bridge.unflatten``); with ``like``, a template tree, as
+    in the JAX loader: the keys must be exactly the template's, and each
+    leaf takes the template's shape (checked), dtype and container kind, so
+    tuples and empty containers come back too."""
     with open(path.replace(".npz", ".json")) as f:
         manifest = json.load(f)
     with np.load(path) as data:
         flat = {k: data[k] for k in data.files}
     if sorted(flat) != sorted(manifest["keys"]):
         raise ValueError(f"checkpoint {path}: npz keys differ from the manifest's")
-    return to_torch(unflatten(flat), resolve_device(device)), manifest
+    device = resolve_device(device)
+    if like is None:
+        return to_torch(unflatten(flat), device), manifest
+    read = set()
+    tree = _restore_like(like, flat, device, read)
+    missing, extra = read - set(flat), set(flat) - read
+    if missing or extra:
+        raise ValueError(f"checkpoint mismatch: missing={sorted(missing)[:5]} "
+                         f"extra={sorted(extra)[:5]}")
+    return tree, manifest
 
 
 def latest_checkpoint(directory: str) -> Optional[str]:

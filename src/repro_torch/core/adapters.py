@@ -4,8 +4,14 @@ metrics) interface over the paper's CNN, VGG19 and MLP models, as
 
 Differences from the JAX adapters: ``init`` takes ``(generator, device)``;
 ``client_forward`` takes pre-drawn standard-normal model noise where the JAX
-one takes a key; and ``feature_shape`` gives the released feature map's
-shape for an input shape, so a caller can draw that noise first.
+one takes a key; ``feature_shape`` gives the released feature map's shape
+for an input shape, and ``noise_scale`` the model noise's scale, so a
+caller knows whether to draw that noise and can draw it first.
+
+The banked views (``banked_client_forward``, ``per_client_loss``,
+``per_client_metrics``) take a leading client axis C on every argument, as
+the JAX package's vmapped ones do; here they loop over the clients, since
+every client's bank differs.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ from typing import Any, Callable, Dict, Tuple
 
 import torch
 
+from repro_torch.common.tree import tree_map
 from repro_torch.configs.paper_models import CNNConfig, MLPConfig
 from repro_torch.metrics.losses import (
     bce_with_logits,
@@ -38,6 +45,48 @@ class SplitAdapter:
     loss: Callable[[Any, Any], torch.Tensor]
     metrics: Callable[[Any, Any], Dict[str, torch.Tensor]]
     feature_shape: Callable[[Tuple[int, ...]], Tuple[int, ...]]  # input -> release shape
+    noise_scale: float = 0.0  # the model noise's scale in client_forward
+
+
+def banked_client_forward(adapter: SplitAdapter, guard=None) -> Callable[..., torch.Tensor]:
+    """``(stacked_banks, xs, model_noise, guard_noise=None) -> features
+    [C, b, ...]``: stacked banks (every leaf ``[C, ...]``), batches
+    ``[C, b, ...]``, standard-normal model noise ``[C, b, ...]`` of the
+    features' shape (``None``: no model noise) and, with an enabled
+    ``PrivacyGuard``, its noise ``[C, b, ...]``.
+
+    Each client's privacy layer runs on its own bank (one ``privacy_conv``
+    launch a client where the model has the kernel on). The guard's release
+    then runs ONCE over the ``[C*b, ...]`` rows: its clip is per row, so
+    that equals a release per client (one ``dp_release`` call a step)."""
+    guarded = guard is not None and guard.enabled
+
+    def fwd(banks, xs, model_noise=None, guard_noise=None):
+        feats = torch.stack([
+            adapter.client_forward(tree_map(lambda a, c=c: a[c], banks), xs[c],
+                                   None if model_noise is None else model_noise[c])
+            for c in range(xs.shape[0])])
+        if not guarded:
+            return feats
+        rows = feats.reshape((-1,) + tuple(feats.shape[2:]))
+        noise = None if guard_noise is None else guard_noise.reshape(rows.shape)
+        return guard.release_with_noise(rows, noise).reshape(feats.shape)
+
+    return fwd
+
+
+def per_client_loss(adapter: SplitAdapter) -> Callable[..., torch.Tensor]:
+    """(outputs [C, b, ...], labels [C, b, ...]) -> per-client losses [C]."""
+    return lambda out, y: torch.stack([adapter.loss(out[c], y[c]) for c in range(out.shape[0])])
+
+
+def per_client_metrics(adapter: SplitAdapter) -> Callable[..., Dict[str, torch.Tensor]]:
+    """(outputs [C, b, ...], labels [C, b, ...]) -> {metric: [C]}."""
+    def metrics(out, y):
+        per = [adapter.metrics(out[c], y[c]) for c in range(out.shape[0])]
+        return {k: torch.stack([m[k] for m in per]) for k in per[0]}
+
+    return metrics
 
 
 def cnn_adapter(cfg: CNNConfig) -> SplitAdapter:
@@ -63,6 +112,7 @@ def cnn_adapter(cfg: CNNConfig) -> SplitAdapter:
         loss=loss,
         metrics=metrics,
         feature_shape=lambda shape: cnn_mod.feature_shape(cfg, shape),
+        noise_scale=cfg.privacy_noise,
     )
 
 
@@ -85,4 +135,5 @@ def mlp_adapter(cfg: MLPConfig) -> SplitAdapter:
         loss=mse,
         metrics=metrics,
         feature_shape=lambda shape: mlp_mod.feature_shape(cfg, shape),
+        noise_scale=cfg.privacy_noise,
     )

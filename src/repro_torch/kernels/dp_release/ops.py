@@ -7,13 +7,15 @@ tensor the kernel does not take, a failed build or a refused launch raises.
 :class:`DPRelease` makes it differentiable the way the JAX ``custom_vjp``
 does (``repro/kernels/dp_release/ops.py:27-48``): the forward runs the
 kernel, the backward recomputes through the plain version, and the noise
-gets no gradient. ``launches`` counts kernel launches: one a call, or the
-two of a split row. :func:`release_plan` chooses how a
-shape runs from the shape and the card's SM count alone, so every branch
-can be tested on the CPU and named in a report.
+gets no gradient. ``launches`` counts kernel launches (one a call, or the
+two of a split row) and ``plans`` the calls of each plan (keyed by its
+sorted items). :func:`release_plan` chooses how a shape runs from the shape
+and the card's SM count alone, so every branch can be tested on the CPU and
+named in a report.
 """
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import Optional
@@ -24,6 +26,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dp_release.ref import dp_release_ref
 
 launches = 0
+plans: collections.Counter = collections.Counter()
 
 THREADS = 512        # a block; fixed in the source
 MIN_CHUNK = 16384    # features a block sums at least when a row is split
@@ -108,6 +111,7 @@ def _launch(x, noise, clip_norm: float, sigma: float,
     if err:
         raise RuntimeError(f"dp_release kernel launch failed: CUDA error {err}")
     launches += 1 if k == 1 else 2
+    plans[tuple(sorted(plan.items()))] += 1
     return out
 
 

@@ -7,13 +7,15 @@ CUDA tensor the kernel does not take, a failed build or a refused launch
 raises. :class:`PrivacyConv` makes it differentiable the way the JAX
 ``custom_vjp`` does (``repro/kernels/privacy_conv/ops.py:28-50``): the
 forward runs the kernel, the backward recomputes through the plain version.
-``launches`` counts kernel launches, so a run can show that its main path
-went through the kernel. :func:`conv_plan` chooses the kernel's variant
-from the shapes alone, so every branch can be tested on the CPU and named
-in a report.
+``launches`` counts kernel launches and ``plans`` the calls of each plan
+(keyed by its sorted items), so a run can show that its main path went
+through the kernel and with which variant. :func:`conv_plan` chooses the
+kernel's variant from the shapes alone, so every branch can be tested on
+the CPU and named in a report.
 """
 from __future__ import annotations
 
+import collections
 import functools
 from typing import Optional
 
@@ -23,6 +25,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.privacy_conv.ref import privacy_conv_ref
 
 launches = 0
+plans: collections.Counter = collections.Counter()
 
 TILE = (8, 8)          # pooled pixels a block (rows, columns); fixed in the source
 CHANNELS_PER_THREAD = 4
@@ -108,6 +111,7 @@ def _launch(x, w, b, noise, noise_scale: float, plan: Optional[dict] = None) -> 
     if err:
         raise RuntimeError(f"privacy_conv kernel launch failed: CUDA error {err}")
     launches += 1
+    plans[tuple(sorted(plan.items()))] += 1
     return out
 
 

@@ -3,10 +3,11 @@
 import numpy as np
 import pytest
 
-from repro.data import make_cholesterol, make_covid_ct, split_clients
+from repro.data import make_cholesterol, make_covid_ct, make_mura, split_clients
 from repro.serving import bursty_trace, poisson_trace
 from repro_torch.data import make_cholesterol as t_make_cholesterol
 from repro_torch.data import make_covid_ct as t_make_covid_ct
+from repro_torch.data import make_mura as t_make_mura
 from repro_torch.data import split_clients as t_split_clients
 from repro_torch.serving import bursty_trace as t_bursty_trace
 from repro_torch.serving import poisson_trace as t_poisson_trace
@@ -32,6 +33,15 @@ def test_covid_ct_and_split_byte_identical(n, hw, seed):
 
 def test_cholesterol_byte_identical():
     for a, b in zip(make_cholesterol(50, seed=4), t_make_cholesterol(50, seed=4)):
+        _same_bytes(a, b)
+
+
+@pytest.mark.parametrize("part", ["wrist", "elbow"])
+def test_mura_byte_identical_within_a_process(part):
+    """The same formula as the reference, ``hash(part)`` included: equal
+    within one process (``hash`` of a str changes between processes)."""
+    for a, b in zip(make_mura(4, hw=24, seed=2, part=part),
+                    t_make_mura(4, hw=24, seed=2, part=part)):
         _same_bytes(a, b)
 
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro_torch.configs import COVID_CNN
+from repro_torch.core import trainer
 from repro_torch.core.adapters import cnn_adapter
 from repro_torch.data import make_covid_ct, split_clients
 from repro_torch.kernels.dp_release import ops as dp_ops
@@ -29,6 +30,7 @@ from repro_torch.kernels.privacy_conv import ops as pc_ops
 from repro_torch.kernels.privacy_conv.ref import privacy_conv_ref
 from repro_torch.kernels.selective_scan import ops as ss_ops
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.optim import adamw
 from repro_torch.privacy import DPConfig, PrivacyGuard
 from repro_torch.serving import SplitInferenceServer, poisson_trace
 
@@ -322,3 +324,40 @@ def test_redesigned_kernels_refuse_what_they_do_not_take(cuda):
             torch.ones(8, device=cuda))
     with pytest.raises(ValueError, match="lanes"):
         ss_ops._launch(u, *rest, 128, 64, lanes=4)  # 4 lanes hold at most 16 states
+
+
+@pytest.mark.parametrize("sigma", [0.0, None])
+def test_e2e_covid_step_kernels_against_plain(cuda, sigma):
+    """One e2e training step of the full-width COVID-CT CNN (3 clients, 21
+    rows each) with the kernels on against the same step with them off, on
+    the same state, batch and noise: three ``privacy_conv`` launches (one a
+    client) and one ``dp_release`` call over the 63 rows. chip_smoke.py's
+    training gate: the metrics within 1e-4 (float32 sums in another order
+    through the trunk and its backward); the gradient (AdamW's first moment
+    after one step is 0.1 x the clipped gradient) within 1e-3 in relative
+    L2 norm (a ReLU or max-pool decision the rounding flips moves one
+    position's contribution). ``sigma`` None is the calibrated σ (ε = 1),
+    whose noise drowns the features; σ 0 lets the loss follow them."""
+    noise = {} if sigma is None else {"noise_scale": sigma}
+    runs = {}
+    for on in (True, False):
+        adapter = cnn_adapter(dataclasses.replace(COVID_CNN, use_kernel=on))
+        tc = trainer.SplitTrainConfig(server_batch=64, mode="e2e",
+                                      privacy=DPConfig(clip_norm=1.0, use_kernel=on, **noise))
+        init, step = trainer.make_spatio_temporal_step(adapter, tc, adamw(1e-3), device=cuda)
+        state = init(torch.Generator().manual_seed(0))
+        shards = split_clients(*make_covid_ct(210, hw=64, seed=0), shares=(0.7, 0.2, 0.1))
+        xs, ys = trainer.stack_batches([(x[:21], y[:21]) for x, y in shards])
+        g = torch.Generator().manual_seed(1)
+        model_noise = torch.randn((3, 21, 32, 32, 16), generator=g).to(cuda)
+        guard_noise = torch.randn((3, 21, 32, 32, 16), generator=g).to(cuda)
+        pc0, dp0 = pc_ops.launches, dp_ops.launches
+        new, metrics = step(state, xs.to(cuda), ys.to(cuda), model_noise, guard_noise)
+        torch.cuda.synchronize()
+        runs[on] = (new, metrics, pc_ops.launches - pc0, dp_ops.launches - dp0)
+    (k_state, k_m, pc, dp), (p_state, p_m, pc_plain, dp_plain) = runs[True], runs[False]
+    assert (pc, dp, pc_plain, dp_plain) == (3, 1, 0, 0)
+    for k in p_m:
+        torch.testing.assert_close(k_m[k], p_m[k], atol=1e-4, rtol=1e-4)
+    k_grad, p_grad = k_state["opt"]["mu"] / 0.1, p_state["opt"]["mu"] / 0.1
+    assert float((k_grad - p_grad).norm() / p_grad.norm()) <= 1e-3

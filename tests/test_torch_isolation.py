@@ -17,6 +17,9 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+# the training path's modules among them
+assert {"repro_torch.common.tree", "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
+        "repro_torch.core.trainer", "repro_torch.core.session"} <= set(names), names
 import numpy as np, torch
 from repro_torch.common.bridge import to_numpy, to_torch
 bits = np.array([0x3F80, 0x7FC1, 0x8000], np.uint16)
@@ -37,7 +40,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS, REPO], env=ENV,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 25  # every module was walked
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -13,12 +13,11 @@ with the flags of ``repro_torch.kernels.build`` into a temporary directory
 COVID-CT client stage (``privacy_conv/covid``) and at the COVID-CT and
 MURA cuts (``dp_release/covid``, ``dp_release/mura``), then the three
 bfloat16 attention cases (llama3.2-1b, mixtral-8x7b, hubert-xlarge) and the
-falcon-mamba-7b scan. A serving source that exports
-``<name>_launch_plan`` runs the plan its wrapper chooses (``plan_for``);
-one that exports only ``<name>_launch`` (the sources from before the plan
-functions) chooses its own launch. Each build's output is held against the
-plain version at ``chip_smoke.py``'s tolerance, with TF32 off for the
-plain convolution and matmuls, then the two builds are timed in turns
+falcon-mamba-7b scan. Both builds of a serving kernel are called through
+its ``<name>_launch_plan`` entry with the plan its wrapper chooses
+(``plan_for``), so either side must export it. Each build's output is held
+against the plain version at ``chip_smoke.py``'s tolerance, with TF32 off
+for the plain convolution and matmuls, then the two builds are timed in turns
 (old, new, new, old, ...) with ``chip_smoke``'s device timer. Prints one
 JSON line per case, with the card's name and power limit, and exits
 non-zero without a card or when a check fails.
@@ -45,17 +44,11 @@ from repro_torch.kernels.dp_release import ops as dp_ops  # noqa: E402
 from repro_torch.kernels.privacy_conv import ops as pc_ops  # noqa: E402
 
 NAMES = ("privacy_conv", "dp_release", "flash_attention", "selective_scan")
-_ptr, _int, _ll, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# the serving kernels' C interface before the plan functions: one thread per
-# pooled output, one block per row, each choosing its own launch
-UNPLANNED = {"privacy_conv_launch": (_ptr,) * 5 + (_int,) * 5 + (_float, _ptr),
-             "dp_release_launch": (_ptr,) * 3 + (_ll, _ll, _float, _float, _ptr)}
 
 
 def load(csrc: str, tag: str, out_dir: str) -> dict:
     """``{name: loaded library}`` of the sources in ``csrc``, with the C
-    functions of ``build.SIGNATURES`` (or the unplanned serving interface)
-    declared where the library exports them."""
+    functions of ``build.SIGNATURES`` declared."""
     procs = {}
     for name in NAMES:
         lib = os.path.join(out_dir, f"lib{name}_{tag}.so")
@@ -68,10 +61,9 @@ def load(csrc: str, tag: str, out_dir: str) -> dict:
         if proc.returncode:
             raise RuntimeError(f"{tag} {name}: nvcc exited {proc.returncode}\n{log}")
         lib = ctypes.CDLL(path)
-        for fname, argtypes in {**build.SIGNATURES[name], **UNPLANNED}.items():
-            if hasattr(lib, fname):
-                fn = getattr(lib, fname)
-                fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        for fname, argtypes in build.SIGNATURES[name].items():
+            fn = getattr(lib, fname)
+            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -87,30 +79,23 @@ def conv_call(lib, x, w, b, nz, scale, out):
     cout = w.shape[-1]
     ptrs = (x.data_ptr(), w.data_ptr(), b.data_ptr(), nz.data_ptr(), out.data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
-    if hasattr(lib, "privacy_conv_launch_plan"):
-        plan = pc_ops.plan_for(x, w, nz, scale)
-        return (lambda: _check(lib.privacy_conv_launch_plan(
-            *ptrs, B, H, W, cin, cout, scale, plan["cin_variant"],
-            plan["channels_per_block"], int(plan["vec4"]), stream), "privacy_conv")), plan
-    return (lambda: _check(lib.privacy_conv_launch(*ptrs, B, H, W, cin, cout, scale, stream),
-                           "privacy_conv")), "its own"
+    plan = pc_ops.plan_for(x, w, nz, scale)
+    return (lambda: _check(lib.privacy_conv_launch_plan(
+        *ptrs, B, H, W, cin, cout, scale, plan["cin_variant"],
+        plan["channels_per_block"], int(plan["vec4"]), stream), "privacy_conv")), plan
 
 
 def release_call(lib, x, nz, sigma, out):
     """One call of ``lib``'s dp_release into ``out``, and its plan."""
     rows, feats = x.shape[0], int(np.prod(x.shape[1:]))
     stream = torch.cuda.current_stream().cuda_stream
-    if hasattr(lib, "dp_release_launch_plan"):
-        plan = dp_ops.plan_for(x, nz, sigma)
-        k = plan["blocks_per_row"]
-        partials = torch.empty((rows, k), device=x.device) if k > 1 else None
-        return (lambda: _check(lib.dp_release_launch_plan(
-            x.data_ptr(), nz.data_ptr(), out.data_ptr(),
-            partials.data_ptr() if partials is not None else None, rows, feats, 1.0, sigma,
-            k, plan["chunk"], int(plan["vec4"]), stream), "dp_release")), plan
-    return (lambda: _check(lib.dp_release_launch(x.data_ptr(), nz.data_ptr(), out.data_ptr(),
-                                                 rows, feats, 1.0, sigma, stream),
-                           "dp_release")), "its own"
+    plan = dp_ops.plan_for(x, nz, sigma)
+    k = plan["blocks_per_row"]
+    partials = torch.empty((rows, k), device=x.device) if k > 1 else None
+    return (lambda: _check(lib.dp_release_launch_plan(
+        x.data_ptr(), nz.data_ptr(), out.data_ptr(),
+        partials.data_ptr() if partials is not None else None, rows, feats, 1.0, sigma,
+        k, plan["chunk"], int(plan["vec4"]), stream), "dp_release")), plan
 
 
 def in_turns(fns: dict, rounds: int) -> dict:
