@@ -39,6 +39,23 @@ COVID-CT step with the kernels on and off, with the kernels' device time a
 step. The ``kernels`` line gives each kernel's launches on the serving path
 and on the training path.
 
+Then it drives the queue path, the paper's Fig. 1 protocol through
+``SplitSession(engine="protocol-async" | "fused-queue").fit``: the COVID-CT
+CNN at its published width, detached, three hospitals pushing guarded
+releases into a 64-item queue, fleet production running each production
+cycle as ONE banked ``privacy_conv`` launch (every item on its hospital's
+bank; checked bit for bit against one unbanked launch an item) and one
+``dp_release`` call, at the calibrated sigma and at sigma 0
+(``queue_covid``: launches per cycle or per release, releases and budget
+equal to the planner's counts, fused-queue = protocol-async and fleet =
+per-item bit for bit, every release against the plain fleet forward on the
+card and the CPU, every trunk step retaken from its state, a bit-for-bit
+restore, the CPU run's accounting); under a chaos ``FaultPlan`` equal to
+the CPU run, and a quorum halt (``queue_faults``); with client threads
+(``queue_threaded``: conservation, and a client's exception surfacing as
+``ClientLoopError``); and times the banked launch and the four engine and
+production pairs (``queue_time``).
+
 Then it drives the LM path, the LM kernels' public entry points
 ``flash_attention`` and ``selective_scan``, at the full widths of the repo's
 LM configs (llama3.2-1b, mixtral-8x7b with its sliding window,
@@ -47,7 +64,8 @@ each output against its plain version on the card and small float32 and
 bfloat16 cases against the CPU, and times the attention cases (the bfloat16
 ones beside SDPA) and the scan, each tile or lane choice of a kernel against
 the one it beat. It prints one JSON object per phase and a ``kernels`` line
-with every ported kernel. The last line is ``{"ok": true, "device": ...}``.
+with every ported kernel (with its launches on the serving, training and
+queue paths). The last line is ``{"ok": true, "device": ...}``.
 
 Any failed phase raises and the script exits non-zero; so does a machine
 without a CUDA card. The weights are random, drawn from seed 0. TF32 is off
@@ -75,13 +93,23 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
 from repro_torch.common.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs import CHOLESTEROL_MLP, COVID_CNN, MURA_VGG19, get_config  # noqa: E402
-from repro_torch.core import SplitSession, SplitTrainConfig  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    ClientLoopError,
+    FaultPlan,
+    SplitSession,
+    SplitTrainConfig,
+)
 from repro_torch.core.adapters import cnn_adapter, mlp_adapter  # noqa: E402
+from repro_torch.core.protocol import (  # noqa: E402
+    _plan_round_robin_cycle,
+    make_fleet_release_fwd,
+)
 from repro_torch.core.trainer import (  # noqa: E402
     SamplePlan,
     device_put_shards,
     make_epoch_runner,
     make_sample_plan,
+    make_server_step,
 )
 from repro_torch.data import (  # noqa: E402
     make_cholesterol,
@@ -96,7 +124,10 @@ from repro_torch.kernels.dp_release.ref import dp_release_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_mask  # noqa: E402
 from repro_torch.kernels.privacy_conv import ops as pc_ops  # noqa: E402
-from repro_torch.kernels.privacy_conv.ref import privacy_conv_ref  # noqa: E402
+from repro_torch.kernels.privacy_conv.ref import (  # noqa: E402
+    privacy_conv_banked_ref,
+    privacy_conv_ref,
+)
 from repro_torch.kernels.selective_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
@@ -151,7 +182,24 @@ CONV_CASES = {"covid": (64, 64, 64, 1, 16, 0.05), "train_covid": (21, 64, 64, 1,
               "cin16": (8, 32, 32, 16, 32, 0.0), "cin40": (2, 34, 16, 40, 36, 0.1),
               "cin3_cout5": (3, 10, 14, 3, 5, 0.1), "cin1_cout6": (2, 18, 22, 1, 6, 0.1),
               "cin20_cout7": (2, 12, 20, 20, 7, 0.1)}
+# banked privacy_conv check cases (N, b, H, W, Cin, Cout, noise_scale, cids,
+# banks): "fleet_covid" is one production cycle of queue_covid (quanta
+# round(shares * 10) = 7/2/1 items of the 21-row client batch, the COVID-CT
+# client stage), then the generic-Cin variant (float4) and the scalar one
+BANKED_CASES = {
+    "fleet_covid": (10, 21, 64, 64, 1, 16, 0.05, (0,) * 7 + (1,) * 2 + (2,), 3),
+    "generic": (4, 3, 32, 32, 16, 32, 0.1, (2, 0, 1, 2), 3),
+    "scalar": (3, 2, 10, 14, 3, 5, 0.1, (1, 0, 1), 2)}
 SHARES = (0.7, 0.2, 0.1)
+# the queue phases: 2 epochs of 10 server steps through a 64-item queue (one
+# production cycle of 7/2/1 items an epoch), and the chaos plan of
+# queue_faults: hospital 1 down for steps 4-8, a third of the fleet down for
+# the first 3 steps of every 10, hospital 2 at half rate, 5% of releases
+# dropped and 5% duplicated in transit, a quorum of one
+QUEUE_EPOCHS, QUEUE_STEPS, QUEUE_SIZE = 2, 10, 64
+CHAOS_PLAN = dict(n_clients=3, seed=0, crash_windows={1: [(4, 9)]}, dropout_frac=0.34,
+                  dropout_period=10, dropout_down=3, straggle={2: 2.0}, drop_prob=0.05,
+                  dup_prob=0.05, halt_below=1)
 REQUEST_BATCH = 64  # one chest-CT study of 64 slices; the paper's batch size
 MAX_BATCH = 8
 # training: per-step losses and every leaf of the trained state, the kernel
@@ -259,6 +307,50 @@ def conv_case(gen, B, H, W, cin, cout, dev):
             torch.randn((B, H // 2, W // 2, cout), generator=gen).to(dev))
 
 
+def banked_case(gen, N, b, H, W, cin, cout, cids, banks, dev):
+    """x [N,b,H,W,Cin], stacked banks w [C,3,3,Cin,Cout] and b [C,Cout],
+    cids [N] int32 and noise [N,b,H/2,W/2,Cout], drawn on the CPU."""
+    return ((torch.rand((N, b, H, W, cin), generator=gen)).to(dev),
+            (0.3 * torch.randn((banks, 3, 3, cin, cout), generator=gen)).to(dev),
+            (0.1 * torch.randn((banks, cout), generator=gen)).to(dev),
+            torch.tensor(cids, dtype=torch.int32, device=dev),
+            torch.randn((N, b, H // 2, W // 2, cout), generator=gen).to(dev))
+
+
+def check_banked(gen, dev, errs: dict) -> dict:
+    """The banked privacy_conv cases: each held against the plain banked
+    version within KERNEL_TOL, bit for bit against one unbanked launch an
+    item on the item's bank, and bit for bit on relaunch. Returns the
+    inputs of each case."""
+    inputs = {}
+    for case, (N, b, H, W, cin, cout, scale, cids, banks) in BANKED_CASES.items():
+        x, w, bb, c, nz = inputs[case] = banked_case(gen, N, b, H, W, cin, cout, cids, banks,
+                                                      dev)
+        plan = pc_ops.plan_for(x, w, nz, scale)
+        got = pc_ops.privacy_conv_banked_forward(x, w, bb, c, nz, scale)
+        again = pc_ops.privacy_conv_banked_forward(x, w, bb, c, nz, scale)
+        items = torch.stack([pc_ops.privacy_conv_forward(x[n], w[k], bb[k], nz[n], scale)
+                             for n, k in enumerate(cids)])
+        item_plans = {tuple(sorted(pc_ops.plan_for(x[n], w[k], nz[n], scale).items()))
+                      for n, k in enumerate(cids)}
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"privacy_conv_banked/{case}: a relaunch gave other bits")
+        if not torch.equal(got, items):
+            raise AssertionError(f"privacy_conv_banked/{case}: differs from {N} unbanked "
+                                 f"launches by {float((got - items).abs().max())}")
+        err = max_err(got, privacy_conv_banked_ref(x, w, bb, c, nz, noise_scale=scale),
+                      **KERNEL_TOL, what=f"privacy_conv_banked/{case}")
+        errs[f"privacy_conv_banked/{case}"] = err
+        emit({"phase": "check", "case": f"privacy_conv_banked/{case}",
+              "shape": [N, b, H, W, cin, cout], "cids": list(cids), "banks": banks,
+              "noise_scale": scale, "plan": plan,
+              "unbanked_plans": [dict(p) for p in item_plans],
+              "bit_identical_unbanked": True, "bit_identical_relaunch": True,
+              "max_abs_err": err, **KERNEL_TOL})
+    return inputs
+
+
 def conv_work(B, H, W, cin, cout) -> dict:
     out = B * (H // 2) * (W // 2) * cout
     nbytes = 4 * (B * H * W * cin + 9 * cin * cout + cout + 2 * out)
@@ -282,7 +374,8 @@ def release_cases(sigma: float) -> dict:
             "train_mura_sigma0": ((63, 112, 112, 64), 0.0),
             "odd_f_split": ((2, 50001), sigma), "odd_f_split_sigma0": ((2, 50001), 0.0),
             "odd_f": ((5, 7, 5), sigma), "odd_f_sigma0": ((5, 7, 5), 0.0),
-            "b1_split": ((1, 112, 112, 64), sigma), "b1": ((1, 100), sigma)}
+            "b1_split": ((1, 112, 112, 64), sigma), "b1": ((1, 100), sigma),
+            "fleet_cycle": ((210, 32, 32, 16), sigma)}
 
 
 def other_release_plan(plan: dict, rows: int, feats: int, sm_count: int) -> dict:
@@ -694,6 +787,446 @@ def train_time(dev, smi: str, shards) -> dict:
     return per_step
 
 
+# ==== the queue engines: protocol-async and fused-queue at COVID-CT width
+class Recorder:
+    """Wraps an engine's function, keeping each call's arguments and result
+    (references: the functions do not mutate their inputs)."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args):
+        out = self.fn(*args)
+        self.calls.append((args, out))
+        return out
+
+
+def queue_session(engine, dev, *, on=True, production="fleet", noise_scale=None,
+                  **options) -> SplitSession:
+    """The paper's Fig. 1 protocol at the COVID-CT CNN's published width:
+    three hospitals (shares 0.7/0.2/0.1), detached, the guard at epsilon 1
+    (``noise_scale`` pins its sigma), adamw(1e-3), server batch 64 (client
+    batch 21), a 64-item queue, the deterministic drive; ``on`` routes the
+    client stage and the release through the kernels."""
+    cfg = dataclasses.replace(COVID_CNN, use_kernel=on)
+    dp = DPConfig(epsilon=1.0, delta=1e-5, clip_norm=1.0, use_kernel=on,
+                  noise_scale=noise_scale)
+    tc = SplitTrainConfig(server_batch=64, mode="detached", privacy=dp)
+    options.setdefault("threaded", False)
+    return SplitSession(cnn_adapter(cfg), tc, adamw(1e-3), engine=engine, seed=0, device=dev,
+                        production=production, queue_size=QUEUE_SIZE, **options)
+
+
+def planned_drive(epochs: int, steps: int, queue_size: int = QUEUE_SIZE) -> dict:
+    """The fault-free round-robin drive restated as counting with the
+    planner (``protocol._plan_round_robin_cycle``), apart from the engines:
+    each client's releases, the production cycles, drops and drains."""
+    quanta = np.maximum(1, np.round(np.asarray(SHARES) * 10).astype(int)).tolist()
+    qlen = step = cycles = dropped = drained = 0
+    releases = [0] * len(quanta)
+    for _ in range(epochs):
+        target = step + steps
+        while step < target:
+            counts = _plan_round_robin_cycle(qlen, queue_size, step, target, quanta)
+            cycles += any(counts)
+            for c, n in enumerate(counts):
+                releases[c] += n
+                for _ in range(n):
+                    if qlen < queue_size:
+                        qlen += 1
+                    elif step < target:
+                        step, drained = step + 1, drained + 1
+                    else:
+                        dropped += 1
+            d = min(qlen, target - step)
+            qlen, step = qlen - d, step + d
+    return {"releases_per_client": releases, "cycles": cycles, "dropped": dropped,
+            "drained": drained}
+
+
+def state_equal(a, b) -> bool:
+    la, lb = tree_leaves(a.state), tree_leaves(b.state)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def queue_run(engine, dev, production, noise_scale, *, record=False):
+    """One queue fit with the kernels on, its counts read around it. With
+    ``record`` the engine's fleet forward and server step are recorded."""
+    sess = queue_session(engine, dev, production=production, noise_scale=noise_scale)
+    if record:
+        sess.engine._fleet_fwd = Recorder(sess.engine._fleet_fwd)
+        sess.engine._server_step = Recorder(sess.engine._server_step)
+    shards = queue_shards()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sess.fit(shards, epochs=QUEUE_EPOCHS, steps_per_epoch=QUEUE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return sess, kernel_counts(), wall
+
+
+def queue_shards():
+    return split_clients(*make_covid_ct(600, hw=64, seed=0), shares=SHARES)
+
+
+def check_queue_counts(sess, ran, production, what) -> dict:
+    """One banked privacy_conv launch and one dp_release call a production
+    cycle with the fleet; one of each a release per item. Returns the
+    launches and calls."""
+    rel = sess.fault_stats["releases_per_client"]
+    items = sum(rel)
+    conv_calls = sum(p["calls"] for p in ran["privacy_conv"]["plans"])
+    dp_calls = sum(p["calls"] for p in ran["dp_release"]["plans"])
+    if production == "fleet":
+        want = sess.engine.fleet.dispatches
+        if not all(p["plan"].get("banked") for p in ran["privacy_conv"]["plans"]):
+            raise AssertionError(f"{what}: an unbanked privacy_conv launch on the fleet path")
+    else:
+        want = items
+        if any(p["plan"].get("banked") for p in ran["privacy_conv"]["plans"]):
+            raise AssertionError(f"{what}: a banked launch on the per-item path")
+    if not (ran["privacy_conv"]["launches"] == conv_calls == dp_calls == want) or want == 0:
+        raise AssertionError(f"{what}: launches {ran}, want {want} of each "
+                             f"({production}, {items} releases)")
+    return {"privacy_conv": ran["privacy_conv"]["launches"],
+            "dp_release": ran["dp_release"]["launches"], "dp_release_calls": dp_calls}
+
+
+def queue_covid(dev, smi: str, tmp: str) -> dict:
+    """``queue_covid``: protocol-async and fused-queue, fleet and per-item,
+    at the calibrated sigma and at sigma 0, 2 epochs of 10 server steps
+    each, cuDNN deterministic. Gates: launches per production cycle (fleet)
+    or release (per item); releases, cycles and the budget equal to the
+    planner's counts; fused-queue = protocol-async and fleet = per-item bit
+    for bit (losses and every state leaf); every release of the kernel run
+    within KERNEL_TOL of the plain fleet forward on the card and on the CPU,
+    on its draws; every trunk step retaken from its state with the plain
+    releases on the card (and, at the calibrated sigma, with the CPU's on
+    the CPU): loss within TRAIN_TOL, gradient within GRAD_TOL; a save and
+    restore that continues bit for bit; and the same fit on the CPU, its
+    accounting equal. Returns the launch counts and the fleet's cycle
+    inputs."""
+    torch.backends.cudnn.deterministic = True
+    plan = planned_drive(QUEUE_EPOCHS, QUEUE_STEPS)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    b = 64 // len(SHARES)  # the client batch of server batch 64
+    feats = 32 * 32 * COVID_CNN.stages[0][0]
+    per_item_plan = dp_ops.release_plan(b, feats, sm_count)
+    cycle_plan = dp_ops.release_plan(10 * b, feats, sm_count)
+    if per_item_plan != cycle_plan:
+        raise AssertionError(f"dp_release plans differ: {per_item_plan} per item, "
+                             f"{cycle_plan} a cycle; fleet = per-item bits cannot hold")
+    out = {"planned": plan, "sigma": {}}
+    for label, noise_scale in (("calibrated", None), ("sigma0", 0.0)):
+        runs, counts, walls = {}, {}, {}
+        for engine in ("protocol-async", "fused-queue"):
+            for production in ("fleet", "per-item"):
+                key = f"{engine}/{production}"
+                record = key == "protocol-async/fleet"
+                sess, ran, walls[key] = queue_run(engine, dev, production, noise_scale,
+                                                  record=record)
+                counts[key] = check_queue_counts(sess, ran, production, key)
+                runs[key] = sess
+                fs, st = sess.fault_stats, sess.engine.stats
+                if (fs["releases_per_client"] != plan["releases_per_client"]
+                        or st["dropped"] != plan["dropped"] or st["drained"] != plan["drained"]
+                        or (production == "fleet"
+                            and sess.engine.fleet.dispatches != plan["cycles"])):
+                    raise AssertionError(f"{key}: releases {fs['releases_per_client']}, "
+                                         f"stats {st}; the planner gives {plan}")
+                report = sess.privacy_report()
+                if report["releases"] != max(plan["releases_per_client"]):
+                    raise AssertionError(f"{key}: budget counts {report['releases']}")
+                losses = sess.engine.losses
+                if (len(losses) != QUEUE_EPOCHS * QUEUE_STEPS
+                        or not np.isfinite(losses).all()):
+                    raise AssertionError(f"{key}: losses {losses}")
+        base = runs["protocol-async/fleet"]
+        for key, sess in runs.items():
+            if sess.engine.losses != base.engine.losses or not state_equal(sess, base):
+                raise AssertionError(f"{label}: {key} differs from protocol-async/fleet")
+            if sess.engine.stats != base.engine.stats:
+                raise AssertionError(f"{label}: {key} stats differ")
+        gate = queue_gate(base, cpu=noise_scale is None)
+        sigma = PrivacyGuard(base.config.privacy).sigma
+        emit({"phase": "queue_covid", "card": smi, "model": COVID_CNN.name, "mode": "detached",
+              "sigma": sigma, "label": label, "epochs": QUEUE_EPOCHS,
+              "steps_per_epoch": QUEUE_STEPS, "client_batch": b, "queue_size": QUEUE_SIZE,
+              "planned": plan, "launches": counts,
+              "dp_release_plan": {"per_item": per_item_plan, "cycle": cycle_plan},
+              "bit_identical": {"fused_queue_vs_protocol_async": True,
+                                "fleet_vs_per_item": True},
+              "stats": {k: v for k, v in base.engine.stats.items() if k != "privacy"},
+              "privacy": {k: v if math.isfinite(v) else str(v)  # sigma 0: no finite epsilon
+                          for k, v in base.privacy_report().items()
+                          if k in ("releases", "basic_epsilon", "advanced_epsilon")},
+              "releases_per_client": base.fault_stats["releases_per_client"],
+              "losses": base.engine.losses, "wall_s": walls, "tf32": False,
+              "cudnn_deterministic": True, **gate})
+        out["sigma"][label] = {"counts": counts, "gate": gate}
+        if label == "calibrated":
+            out["cycles"] = [args for args, _ in base.engine._fleet_fwd.calls]
+            queue_cpu(base, plan)
+            queue_restore(dev, base, tmp)
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def queue_gate(sess, cpu: bool) -> dict:
+    """The release and trunk-step gates of a recorded kernel run (see
+    :func:`queue_covid`)."""
+    cfg = dataclasses.replace(COVID_CNN, use_kernel=False)
+    plain_dp = dataclasses.replace(sess.config.privacy, use_kernel=False)
+    plain_fleet = make_fleet_release_fwd(cnn_adapter(cfg), PrivacyGuard(plain_dp))
+    to_cpu = lambda t: tree_map(lambda a: a.cpu(), t)  # noqa: E731
+    kernel_rel, plain_rel, cpu_rel = [], [], []
+    rel_err = {"plain_card": 0.0, "cpu": 0.0}
+    reset_counts()
+    for args, got in sess.engine._fleet_fwd.calls:
+        plain = plain_fleet(*args)
+        rel_err["plain_card"] = max(rel_err["plain_card"], max_err(
+            got, plain, **KERNEL_TOL, what="release vs the plain fleet forward"))
+        kernel_rel.append(got)
+        plain_rel.append(plain)
+        if cpu:
+            on_cpu = plain_fleet(*to_cpu(args))
+            rel_err["cpu"] = max(rel_err["cpu"], max_err(
+                got.cpu(), on_cpu, **KERNEL_TOL, what="release vs the CPU"))
+            cpu_rel.append(on_cpu)
+    if pc_ops.launches or dp_ops.launches:
+        raise AssertionError("the plain fleet forward launched a kernel")
+    kernel_rel, plain_rel = torch.cat(kernel_rel), torch.cat(plain_rel)
+    cpu_rel = torch.cat(cpu_rel) if cpu else None
+    step_fn = make_server_step(sess.adapter, sess.opt, sess.config.grad_clip)
+    worst = {k: {"loss": 0.0, "grad_rel_l2": 0.0} for k in
+             (("plain_card", "cpu") if cpu else ("plain_card",))}
+    for k, ((params, opt_state, step, f, y), (_, new_opt, loss)) in enumerate(
+            sess.engine._server_step.calls):
+        if not torch.equal(f, kernel_rel[k]):
+            raise AssertionError(f"pop {k} is not the {k}-th release")
+        # the step's clipped gradient, read back from AdamW's first moment
+        mu0 = [m.cpu() for m in tree_leaves(opt_state["mu"])]
+        grad = lambda o: torch.cat([  # noqa: E731
+            ((m1.cpu() - ADAM_B1 * m0) / (1 - ADAM_B1)).reshape(-1)
+            for m1, m0 in zip(tree_leaves(o["mu"]), mu0)])
+        g_k = grad(new_opt)
+        retake = {"plain_card": (params, opt_state, plain_rel[k], y)}
+        if cpu:
+            retake["cpu"] = (to_cpu(params), to_cpu(opt_state), cpu_rel[k], y.cpu())
+        for name, (p0, o0, f0, y0) in retake.items():
+            _, o2, loss2 = step_fn(p0, o0, step, f0, y0)
+            g2 = grad(o2)
+            err = max_err(loss2.reshape(1).cpu(), loss.reshape(1).cpu(), **TRAIN_TOL,
+                          what=f"trunk step {k} loss, {name}")
+            rel = float((g2 - g_k).norm() / g_k.norm())
+            if not rel <= GRAD_TOL:
+                raise AssertionError(f"trunk step {k}, {name}: gradient relative L2 {rel}")
+            worst[name]["loss"] = max(worst[name]["loss"], err)
+            worst[name]["grad_rel_l2"] = max(worst[name]["grad_rel_l2"], rel)
+    return {"releases_checked": int(kernel_rel.shape[0]),
+            "release_max_abs_err": rel_err if cpu else {"plain_card": rel_err["plain_card"]},
+            "trunk_steps_checked": len(sess.engine._server_step.calls),
+            "trunk_max_err": worst, "kernel_tol": KERNEL_TOL, "train_tol": TRAIN_TOL,
+            "grad_tol": GRAD_TOL}
+
+
+def queue_restore(dev, sess, tmp: str) -> None:
+    """``queue_restore``: a protocol-async run saved after its fit continues
+    one more epoch; a session restored from the checkpoint continues the
+    same epoch, bit for bit."""
+    path = sess.save(os.path.join(tmp, "queue"))
+    shards = queue_shards()
+    sess.fit(shards, epochs=1, steps_per_epoch=QUEUE_STEPS)
+    restored = queue_session("protocol-async", dev)
+    restored.restore(path)
+    restored.fit(shards, epochs=1, steps_per_epoch=QUEUE_STEPS)
+    if (restored.engine.losses != sess.engine.losses[-QUEUE_STEPS:]
+            or not state_equal(restored, sess)):
+        raise AssertionError("the restored queue run differs from the continued one")
+    emit({"phase": "queue_restore", "step": int(restored.state["step"]), "bit_identical": True,
+          "losses": restored.engine.losses,
+          "releases": restored.privacy_report()["releases"]})
+
+
+def queue_cpu(card, plan) -> None:
+    """``queue_cpu``: the same protocol-async fleet fit on the CPU (plain
+    versions): the accounting equals the card's exactly. Its losses are
+    printed, not gated: AdamW carries float32 rounding through 20 steps."""
+    t0 = time.perf_counter()
+    cpu = queue_session("protocol-async", torch.device("cpu"), on=False)
+    cpu.fit(queue_shards(), epochs=QUEUE_EPOCHS, steps_per_epoch=QUEUE_STEPS)
+    wall = time.perf_counter() - t0
+    first = card.engine.losses[:QUEUE_EPOCHS * QUEUE_STEPS]
+    if (cpu.engine.stats != card.engine.stats or cpu.fault_stats != card.fault_stats
+            or cpu.fault_stats["releases_per_client"] != plan["releases_per_client"]):
+        raise AssertionError(f"CPU accounting {cpu.engine.stats} {cpu.fault_stats} differs "
+                             f"from the card's {card.engine.stats} {card.fault_stats}")
+    emit({"phase": "queue_cpu", "stats_equal": True, "fault_stats_equal": True,
+          "wall_s": wall, "cpu_losses": cpu.engine.losses, "card_losses": first,
+          "first_loss_abs_diff": abs(cpu.engine.losses[0] - first[0])})
+
+
+def queue_faults(dev, smi: str) -> dict:
+    """``queue_faults``: protocol-async, deterministic, at the same widths,
+    under the chaos plan (transport faults: per-item production), on the
+    card with the kernels and on the CPU with the plain versions:
+    ``fault_stats``, the queue stats (``dropped``/``drained`` too) and the
+    number of losses equal exactly; then a ``halt_below=3`` plan halts
+    cleanly with the reference's reason, on both."""
+    shards = queue_shards()
+    out = {}
+    for name, halt_below in (("chaos", 1), ("quorum", 3)):
+        plan = FaultPlan(**{**CHAOS_PLAN, "halt_below": halt_below})
+        runs = {}
+        for name_, where, on in (("card", dev, True), ("cpu", torch.device("cpu"), False)):
+            sess = queue_session("protocol-async", where, on=on)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            hist = sess.fit(shards, epochs=QUEUE_EPOCHS, steps_per_epoch=QUEUE_STEPS,
+                            faults=plan)
+            torch.cuda.synchronize()
+            runs[name_] = (sess, hist, kernel_counts(), time.perf_counter() - t0)
+        (card, hc, ran, wall), (cpu, hcpu, _, cpu_wall) = runs["card"], runs["cpu"]
+        if (card.fault_stats != cpu.fault_stats or card.engine.stats != cpu.engine.stats
+                or len(card.engine.losses) != len(cpu.engine.losses)
+                or [h.get("halted") for h in hc] != [h.get("halted") for h in hcpu]):
+            raise AssertionError(f"{name}: card {card.fault_stats} {card.engine.stats} != "
+                                 f"CPU {cpu.fault_stats} {cpu.engine.stats}")
+        fs = card.fault_stats
+        if name == "chaos":
+            if fs["halted"] or len(card.engine.losses) != QUEUE_EPOCHS * QUEUE_STEPS:
+                raise AssertionError(f"chaos run halted or fell short: {fs}")
+            if not sum(fs["down_cycles"]):
+                raise AssertionError("the chaos plan took no client down")
+            launches = check_queue_counts(card, ran, "per-item", "queue_faults")
+        else:
+            step = int(card.state["step"])
+            up = sum(plan.up_mask(step))
+            reason = f"quorum lost at step {step}: {up} up < halt_below={halt_below}"
+            if not fs["halted"] or fs["halt_reason"] != reason or not hc[-1].get("halted"):
+                raise AssertionError(f"quorum plan: {fs}, want the halt {reason!r}")
+            launches = {k: v["launches"] for k, v in ran.items()}
+        if card.privacy_report()["releases"] != max(fs["releases_per_client"]):
+            raise AssertionError(f"{name}: the budget does not follow the worst client")
+        emit({"phase": "queue_faults", "card": smi, "plan": name, "fault_stats": fs,
+              "stats": {k: v for k, v in card.engine.stats.items() if k != "privacy"},
+              "losses": len(card.engine.losses), "launches": launches,
+              "equal_to_cpu": True, "wall_s": wall, "cpu_wall_s": cpu_wall})
+        out[name] = launches
+    return out
+
+
+def queue_threaded(dev, smi: str) -> dict:
+    """``queue_threaded``: protocol-async with client threads, fleet
+    production in chunks of 4, 20 server steps. Arrival order is the OS's,
+    so conservation is gated: pushed - popped is the queue's length, the
+    releases are the chunks produced, the launches the dispatches, the
+    budget the worst client's; then a client thread's exception (a raising
+    ``noise_fn``) surfaces as ClientLoopError."""
+    shards = queue_shards()
+    sess = queue_session("protocol-async", dev, threaded=True, fleet_chunk=4,
+                         pop_timeout=0.05)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sess.fit(shards, epochs=1, steps_per_epoch=2 * QUEUE_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = kernel_counts()
+    st, fs, eng = sess.engine.stats, sess.fault_stats, sess.engine
+    rel = fs["releases_per_client"]
+    dispatches = eng.fleet.dispatches
+    checks = {
+        "pushed_minus_popped_is_queue_length": st["pushed"] - st["popped"] == len(eng.queue),
+        "popped_is_steps": st["popped"] == 2 * QUEUE_STEPS == int(sess.state["step"]),
+        "releases_are_chunks": sum(rel) == 4 * dispatches,
+        "launches_are_dispatches": (ran["privacy_conv"]["launches"] == dispatches
+                                    == sum(p["calls"] for p in ran["dp_release"]["plans"])),
+        "budget_follows_worst_client": sess.privacy_report()["releases"] == max(rel),
+        "losses_finite": bool(np.isfinite(eng.losses).all()),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"threaded drive: {checks}, stats {st}, releases {rel}, "
+                             f"dispatches {dispatches}, launches {ran}")
+
+    def failing_noise(client, release, model_shape, guard_shape):
+        raise RuntimeError(f"no draws for client {client}")
+
+    bad = queue_session("protocol-async", dev, threaded=True, fleet_chunk=4,
+                        pop_timeout=0.05, noise_fn=failing_noise)
+    try:
+        bad.fit(shards, epochs=1, steps_per_epoch=2 * QUEUE_STEPS)
+    except ClientLoopError as e:
+        surfaced = {"client_id": e.client_id, "cause": repr(e.cause),
+                    "fault_stats_error": bad.fault_stats["client_error"]}
+    else:
+        raise AssertionError("a raising client thread did not surface as ClientLoopError")
+    emit({"phase": "queue_threaded", "card": smi, "fleet_chunk": 4, "wall_s": wall,
+          "stats": {k: v for k, v in st.items() if k != "privacy"},
+          "releases_per_client": rel, "dispatches": dispatches,
+          "launches": {k: v["launches"] for k, v in ran.items()}, **checks,
+          "client_error": surfaced})
+    return {"privacy_conv": ran["privacy_conv"]["launches"],
+            "dp_release": ran["dp_release"]["launches"]}
+
+
+def queue_time(dev, smi: str, inputs: dict, cycle_release: tuple) -> dict:
+    """``queue_time``: one production cycle's banked launch (device ms) with
+    its bound, ten unbanked launches (device ms, in turns with it) and the
+    plain banked version (host-fed); the cycle's dp_release call over
+    ``[210, 32, 32, 16]``; and the wall server steps/s of protocol-async
+    against fused-queue, fleet against per-item (one epoch of 10 steps
+    each, 3 rounds in turns)."""
+    N, b, H, W, cin, cout, scale, cids, _ = BANKED_CASES["fleet_covid"]
+    x, w, bb, c, nz = inputs["fleet_covid"]
+    banked = lambda: pc_ops.privacy_conv_banked_forward(x, w, bb, c, nz, scale)  # noqa: E731
+    plain = lambda: privacy_conv_banked_ref(x, w, bb, c, nz, noise_scale=scale)  # noqa: E731
+    unbanked = lambda: [pc_ops.privacy_conv_forward(x[n], w[k], bb[k], nz[n], scale)  # noqa
+                        for n, k in enumerate(cids)]
+    k_ms, u_ms = paired_ms(banked, unbanked)
+    # the plain version reads cids on the host (a sync a call), so it cannot
+    # be queued ahead of the device: host-fed time
+    p_ms = float(np.median([host_fed_ms(plain, iters=20, warmup=int(r == 0))
+                            for r in range(3)]))
+    # the unbanked work of the N*b images, plus the other banks and the cids
+    work = conv_work(N * b, H, W, cin, cout)
+    nbytes = work["bytes"] + 4 * ((w.shape[0] - 1) * (9 * cin * cout + cout) + len(cids))
+    conv = {"case": "privacy_conv_banked/fleet_covid", "ms": k_ms, "plain_ms": p_ms,
+            "plain_timer": "host_fed", "unbanked_x10_ms": u_ms, "plan": pc_ops.plan_for(x, w, nz, scale),
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes a banked conv+bias+ReLU+pool+noise",
+            **bound(nbytes, work["flops"])}
+    xr, nr = cycle_release
+    sigma = DPConfig().sigma
+    r_ms, rp_ms = paired_ms(lambda: dp_ops.dp_release_forward(xr, nr, 1.0, sigma),
+                            lambda: dp_release_ref(xr, nr, clip_norm=1.0, sigma=sigma))
+    release = {"case": "dp_release/fleet_cycle", "shape": list(xr.shape), "ms": r_ms,
+               "plain_ms": rp_ms, "plan": dp_ops.plan_for(xr, nr, sigma), "library_ms": None,
+               **release_work(tuple(xr.shape), sigma)}
+    for t in (conv, release):
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        emit({"phase": "time", "card": smi, **t})
+    shards = queue_shards()
+    rates = {f"{e}/{p}": [] for e in ("protocol-async", "fused-queue")
+             for p in ("fleet", "per-item")}
+    for r in range(3):
+        for key in (rates if r % 2 == 0 else list(rates)[::-1]):
+            engine, production = key.split("/")
+            sess = queue_session(engine, dev, production=production)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sess.fit(shards, epochs=1, steps_per_epoch=QUEUE_STEPS)
+            torch.cuda.synchronize()
+            rates[key].append(QUEUE_STEPS / (time.perf_counter() - t0))
+    emit({"phase": "queue_time", "card": smi, "steps_per_fit": QUEUE_STEPS, "rounds": 3,
+          "note": "wall server steps/s of one fit each, session set-up excluded, host clock",
+          **{f"{k}_steps_per_s": float(np.median(v)) for k, v in rates.items()},
+          **{f"{k}_steps_per_s_all": v for k, v in rates.items()}})
+    return {"privacy_conv": conv, "dp_release": release}
+
+
 def covid_state(adapter, dev):
     gen = torch.Generator().manual_seed(0)
     return {"client_banks": [adapter.init(gen, dev)["client"] for _ in SHARES],
@@ -749,6 +1282,7 @@ def main() -> None:
               "noise_scale": scale, "plan": plan, "max_abs_err": err, **KERNEL_TOL})
     if seen != {(c, v) for c in (1, 0) for v in (True, False)}:
         raise AssertionError(f"privacy_conv variants checked {sorted(seen)}, want all four")
+    banked_inputs = check_banked(gen, dev, errs)
     sigma = DPConfig().sigma
     release_inputs = {}
     seen = set()
@@ -937,6 +1471,13 @@ def main() -> None:
     quickstart(dev)
     train_device_ms = train_time(dev, smi, covid["shards"])
 
+    # ==== the queue path: protocol-async and fused-queue, faults, threads
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        queue = queue_covid(dev, smi, tmp)
+    queue_fault_launches = queue_faults(dev, smi)
+    queue_thread_launches = queue_threaded(dev, smi)
+    queue_timed = queue_time(dev, smi, banked_inputs, release_inputs["fleet_cycle"])
+
     # ==== the LM path: the LM kernels' entry points at the configs' widths
     attn = {}
     for i, (name, B, S, dtypes) in enumerate(ATTN_CASES):
@@ -1085,6 +1626,16 @@ def main() -> None:
     # device ms a call at a training shape (a client's batch; MURA's cut)
     training_ms = {"privacy_conv": timed["privacy_conv/train_covid"],
                    "dp_release": timed["dp_release/train_mura"]}
+    # launches on the queue path, each phase's run read apart (queue_covid:
+    # the calibrated-sigma runs, fleet and per item, each engine)
+    calibrated = queue["sigma"]["calibrated"]["counts"]
+    queue_launches = {
+        name: {"queue_covid": {k: v[name] for k, v in calibrated.items()},
+               "queue_faults": queue_fault_launches["chaos"][name],
+               "queue_threaded": queue_thread_launches[name]}
+        for name in ("privacy_conv", "dp_release")}
+    queue_case = {"privacy_conv": ("privacy_conv_banked/fleet_covid", queue_timed["privacy_conv"]),
+                  "dp_release": ("dp_release/fleet_cycle", queue_timed["dp_release"])}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep_line,
          "launches": counts[name], "max_abs_err": errs[case], "ms": t["ms"],
@@ -1093,7 +1644,12 @@ def main() -> None:
          "launches_training": training.get(name, {"train_covid": 0, "train_mura": 0}),
          "training_device_ms_per_step": train_device_ms.get(name),
          "training_case": training_ms[name]["case"] if name in training_ms else None,
-         "training_ms": training_ms[name]["ms"] if name in training_ms else None}
+         "training_ms": training_ms[name]["ms"] if name in training_ms else None,
+         "launches_queue": queue_launches.get(name),
+         "queue_case": queue_case[name][0] if name in queue_case else None,
+         "queue_max_abs_err": errs[queue_case[name][0]] if name in queue_case else None,
+         **({f"queue_{k}": queue_case[name][1][k]
+             for k in ("ms", "plain_ms", "bound_ms", "bound_by")} if name in queue_case else {})}
         for name, src, rep_line, case, t, counts in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

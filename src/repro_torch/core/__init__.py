@@ -1,13 +1,19 @@
 """Spatio-temporal split learning in the port, as ``repro.core``:
 
-- session:  ``SplitSession`` over the fused (scan / stepwise) and looped
-            reference engines, with one canonical state
-- trainer:  the fused trainer, the looped reference, evaluation
+- session:  ``SplitSession`` over the fused (scan / stepwise), looped
+            reference and queue (protocol-async / fused-queue) engines,
+            with one canonical state
+- trainer:  the fused trainer, the looped reference, the queue engines'
+            server step and bank replay, evaluation
 - adapters: the model adapters and their banked (per-client) views
-- queue, protocol: the feature queue and the client-side release that
-            serving needs
+- queue:    the server-side feature queue (paper Fig. 1) and the
+            FeatureBank that stages arrivals for the fused-queue engine
+- protocol: the two-program client/server protocol and fleet production
+- faults:   deterministic fault injection (FaultPlan) for the queue
+            engines, via ``fit(..., faults=)``
 """
-from repro_torch.core.queue import FeatureQueue
+from repro_torch.core.faults import ClientLoopError, FaultPlan
+from repro_torch.core.queue import FeatureBank, FeatureQueue
 from repro_torch.core.session import SplitSession, available_engines, register_engine
 from repro_torch.core.trainer import (
     SamplePlan,
@@ -18,6 +24,7 @@ from repro_torch.core.trainer import (
     make_epoch_runner,
     make_looped_step,
     make_sample_plan,
+    make_server_bank_runner,
     make_spatio_temporal_step,
     single_client_config,
 )

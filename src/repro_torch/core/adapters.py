@@ -11,12 +11,14 @@ caller knows whether to draw that noise and can draw it first.
 The banked views (``banked_client_forward``, ``per_client_loss``,
 ``per_client_metrics``) take a leading client axis C on every argument, as
 the JAX package's vmapped ones do; here they loop over the clients, since
-every client's bank differs.
+every client's bank differs. ``fleet_release_forward`` is the queue
+engines' production cycle: N items, each on its own client's bank, with the
+CNN's single-conv kernel stages in one banked ``privacy_conv`` launch.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -46,6 +48,9 @@ class SplitAdapter:
     metrics: Callable[[Any, Any], Dict[str, torch.Tensor]]
     feature_shape: Callable[[Tuple[int, ...]], Tuple[int, ...]]  # input -> release shape
     noise_scale: float = 0.0  # the model noise's scale in client_forward
+    # (stacked_banks, cids, xs, noise) -> features [N, b, ...] of N items,
+    # item n on bank cids[n]; None: client_forward item by item
+    fleet_client_forward: Optional[Callable[..., Any]] = None
 
 
 def banked_client_forward(adapter: SplitAdapter, guard=None) -> Callable[..., torch.Tensor]:
@@ -66,6 +71,38 @@ def banked_client_forward(adapter: SplitAdapter, guard=None) -> Callable[..., to
             adapter.client_forward(tree_map(lambda a, c=c: a[c], banks), xs[c],
                                    None if model_noise is None else model_noise[c])
             for c in range(xs.shape[0])])
+        if not guarded:
+            return feats
+        rows = feats.reshape((-1,) + tuple(feats.shape[2:]))
+        noise = None if guard_noise is None else guard_noise.reshape(rows.shape)
+        return guard.release_with_noise(rows, noise).reshape(feats.shape)
+
+    return fwd
+
+
+def fleet_release_forward(adapter: SplitAdapter, guard=None) -> Callable[..., torch.Tensor]:
+    """``(stacked_banks, cids, xs, model_noise=None, guard_noise=None) ->
+    features [N, b, ...]``: a production cycle of N queue items, item n with
+    batch ``xs[n]`` on bank ``cids[n]`` (``cids`` an int32 tensor on the
+    items' device) and its noise ``model_noise[n]``, ``guard_noise[n]``.
+
+    The privacy layer runs as ``adapter.fleet_client_forward`` (the CNN's:
+    one banked ``privacy_conv`` launch a single-conv kernel stage) or, for
+    an adapter without one, ``client_forward`` item by item on views of the
+    stacked banks. The guard's release then runs ONCE over the ``[N*b,
+    ...]`` rows: its clip is per row, so that equals a release per item (one
+    ``dp_release`` call a cycle). Per item the result is what
+    ``client_forward`` and the guard give one item."""
+    guarded = guard is not None and guard.enabled
+
+    def fwd(banks, cids, xs, model_noise=None, guard_noise=None):
+        if adapter.fleet_client_forward is not None:
+            feats = adapter.fleet_client_forward(banks, cids, xs, model_noise)
+        else:
+            feats = torch.stack([
+                adapter.client_forward(tree_map(lambda a, c=c: a[c], banks), xs[n],
+                                       None if model_noise is None else model_noise[n])
+                for n, c in enumerate(cids.tolist())])
         if not guarded:
             return feats
         rows = feats.reshape((-1,) + tuple(feats.shape[2:]))
@@ -113,6 +150,8 @@ def cnn_adapter(cfg: CNNConfig) -> SplitAdapter:
         metrics=metrics,
         feature_shape=lambda shape: cnn_mod.feature_shape(cfg, shape),
         noise_scale=cfg.privacy_noise,
+        fleet_client_forward=lambda banks, cids, xs, noise=None: cnn_mod.fleet_client_forward(
+            {"client": banks}, cfg, cids, xs, noise),
     )
 
 

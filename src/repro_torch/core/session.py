@@ -15,10 +15,16 @@ Canonical state (the JAX package's, leaf for leaf, so checkpoints cross)::
 Engines register by name (``available_engines()``): ``auto``,
 ``fused-scan`` and ``fused-stepwise`` (the fused engine; ``auto`` is scan
 mode, the accelerator path of the reference's heuristic, since here both
-modes run one loop of steps) and ``looped-ref`` (the seed's per-client
-loop). The reference's other engines (``protocol-async``, ``fused-queue``,
-``fedavg``, ``llm-split``), ``mesh=``, ``faults=`` and ``audit_privacy``
-are not ported yet and raise a ``ValueError`` that says what is available.
+modes run one loop of steps), ``looped-ref`` (the seed's per-client loop),
+and the two queue engines, ``protocol-async`` (real client and server
+objects behind a ``FeatureQueue``, one trunk update a pop) and
+``fused-queue`` (the same arrivals banked, then replayed), which alone take
+``fit(..., faults=FaultPlan)``. Their ``opt`` leaf is the optimizer's
+moment tree and their ``step`` counts server steps, as in the reference, so
+their checkpoints cross with the JAX package's queue engines. The
+reference's other engines (``fedavg``, ``llm-split``), ``mesh=`` and
+``audit_privacy`` are not ported yet and raise a ``ValueError`` that says
+what is available.
 
 Randomness. The JAX engines fold an epoch key out of ``PRNGKey(seed)``;
 here every draw comes from a CPU ``torch.Generator`` seeded with the first
@@ -44,29 +50,41 @@ import torch
 
 from repro_torch.checkpoint.io import load_checkpoint, save_checkpoint
 from repro_torch.common.device import resolve_device
+from repro_torch.core import protocol as protocol_mod
 from repro_torch.core.adapters import SplitAdapter
+from repro_torch.core.faults import ClientLoopError, FaultPlan
+from repro_torch.core.queue import FeatureBank, FeatureQueue
 from repro_torch.core.trainer import (
     SamplePlan,
     SplitTrainConfig,
     client_weights,
     device_put_shards,
     evaluate_per_client,
+    finite_mean,
+    fused_client_batch,
     make_epoch_runner,
     make_looped_step,
     make_sample_plan,
+    make_server_bank_runner,
+    make_server_step,
     make_spatio_temporal_step,
     stack_pytrees,
     unstack_pytree,
 )
 from repro_torch.optim.optimizers import Optimizer
-from repro_torch.privacy.accountant import budget_advance, budget_report
+from repro_torch.privacy.accountant import (
+    budget_advance,
+    budget_init,
+    budget_report,
+    per_client_report,
+)
 from repro_torch.privacy.guard import PrivacyGuard
 
 Shards = Sequence[Tuple[np.ndarray, np.ndarray]]
 EvalFn = Optional[Callable[[Any], Dict[str, float]]]
 
 # the reference's engines that the port does not have yet
-NOT_PORTED = ("protocol-async", "fused-queue", "fedavg", "llm-split")
+NOT_PORTED = ("fedavg", "llm-split")
 
 _ENGINES: Dict[str, Callable[..., Any]] = {}
 
@@ -244,18 +262,310 @@ class LoopedEngine(_Engine):
         }
 
 
+# ------------------------------------------------------------ async protocol
+@register_engine("protocol-async")
+class ProtocolEngine:
+    """The two-program protocol (``core.protocol``) behind the session
+    surface, as the reference's: real client and server objects that
+    communicate only through a ``FeatureQueue``. One ``steps_per_epoch`` is
+    one pop and trunk update. ``threaded=False`` is the deterministic
+    round-robin drive; ``production="fleet"`` (default) runs each production
+    cycle as one fleet forward over the stacked banks, bit for bit
+    ``production="per-item"``. The releases are host NumPy arrays (the queue
+    is a host object, the trust boundary): a copy to the host a push, and
+    back a pop.
+
+    The port's options beyond the reference's: ``device`` (``None``: the
+    card) and ``noise_fn``, ``(client_id, release, model_shape, guard_shape)
+    -> (model_noise, guard_noise)`` in place of the clients' generators
+    (``protocol.ReleaseNoise``); it is read at each ``run``, so a caller
+    that needs draws keyed on the run's start step sets it before a fit."""
+
+    name = "protocol-async"
+    # clients keep host-NumPy releases here; the fused-queue subclass flips it
+    _client_as_numpy = True
+    # fit(..., faults=FaultPlan): failures are a property of the multi-site
+    # transport, which only the queue engines model
+    supports_faults = True
+
+    def __init__(self, adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, *,
+                 device=None, threaded: bool = False, client_batch: Optional[int] = None,
+                 queue_size: int = 64, per_client_cap: Optional[int] = None,
+                 production: str = "fleet", fleet_chunk: int = 8, pop_timeout: float = 1.0,
+                 pop_retries: int = 0, pop_backoff: float = 2.0, noise_fn=None):
+        if tc.mode != "detached":
+            raise ValueError(
+                f"{self.name} trains the server trunk only (the paper's "
+                "detached regime); mode='e2e' needs a fused or looped engine"
+            )
+        if production not in ("fleet", "per-item"):
+            raise ValueError(
+                f"production must be 'fleet' or 'per-item', got {production!r}"
+            )
+        if fleet_chunk < 1:
+            # a 0-item chunk would starve the threaded client loops forever
+            raise ValueError(f"fleet_chunk must be >= 1, got {fleet_chunk}")
+        if pop_timeout < 0:
+            raise ValueError(f"pop_timeout must be >= 0, got {pop_timeout}")
+        if pop_retries < 0:
+            raise ValueError(f"pop_retries must be >= 0, got {pop_retries}")
+        if pop_backoff < 1.0:
+            # a shrinking backoff would busy-wait the starved consumer
+            raise ValueError(f"pop_backoff must be >= 1.0, got {pop_backoff}")
+        self.adapter, self.tc, self.opt = adapter, tc, opt
+        self.device = resolve_device(device)
+        self.threaded = threaded
+        self.client_batch = client_batch or fused_client_batch(tc)
+        self.queue_size, self.per_client_cap = queue_size, per_client_cap
+        self.pop_timeout, self.pop_retries = pop_timeout, pop_retries
+        self.pop_backoff = pop_backoff
+        self.production, self.fleet_chunk = production, fleet_chunk
+        self.noise_fn = noise_fn
+        self.guard = PrivacyGuard(tc.privacy)
+        # one release function for the whole fleet across fits (parameters
+        # are arguments), the fleet-batched one, and the per-pop step
+        self._client_fwd = protocol_mod.make_client_release_fwd(adapter, self.guard)
+        self._fleet_fwd = protocol_mod.make_fleet_release_fwd(adapter, self.guard)
+        self._server_step = make_server_step(adapter, opt, tc.grad_clip)
+        self.losses: List[float] = []
+        self.stats: Dict[str, Any] = {}
+        self.fault_stats: Dict[str, Any] = {}
+        self.step_metrics: List[Dict[str, np.ndarray]] = []
+        self.queue: Optional[FeatureQueue] = None
+        self.fleet: Optional[protocol_mod.FleetProducer] = None
+
+    def init(self, seed: int):
+        """The trunk from the first full init drawn from the seed's
+        generator, then each client's bank from one more full init each."""
+        self._seed = int(seed)
+        gen = seeded_generator(seed)
+        server = self.adapter.init(gen, self.device)["server"]
+        banks = [self.adapter.init(gen, self.device)["client"]
+                 for _ in range(self.tc.n_clients)]
+        return {"client_banks": banks, "server": server, "opt": self.opt.init(server),
+                "step": 0, "privacy": budget_init(self.device)}
+
+    def _noise_seed_for(self, step: int) -> int:
+        """The clients' batch-sampling seed base, advanced by consumed server
+        steps so a second fit (or a restore-then-fit) draws fresh batches:
+        the reference's ``seed + 100003 * step``."""
+        return self._seed + 100003 * int(step)
+
+    def _make_clients(self, state, shards):
+        """The fleet, seeded from the consumed server step; shared verbatim
+        by protocol-async and fused-queue."""
+        step = int(state["step"])
+        return [
+            protocol_mod.SplitClient(
+                c, self.adapter, state["client_banks"][c],
+                (np.asarray(shards[c][0]), np.asarray(shards[c][1])),
+                batch=self.client_batch, noise_seed=self._noise_seed_for(step),
+                guard=self.guard, fwd=self._client_fwd,
+                noise=protocol_mod.ReleaseNoise(c, self.adapter, self.guard, self.device,
+                                                seed=self._seed, step=step,
+                                                noise_fn=self.noise_fn),
+                as_numpy=self._client_as_numpy, device=self.device,
+            )
+            for c in range(self.tc.n_clients)
+        ]
+
+    # ---- the two hooks that differ between the per-pop and banked servers
+    def _make_consumer(self, state, queue):
+        return protocol_mod.SplitServer(
+            self.adapter, state["server"], self.opt, queue, clip_norm=self.tc.grad_clip,
+            opt_state=state["opt"], step_count=int(state["step"]),
+            step_fn=self._server_step, device=self.device,
+        )
+
+    def _make_fleet(self, clients):
+        """The fleet producer over this run's clients (the banks are frozen
+        for the run: these engines are detached), or ``None`` per item."""
+        if self.production != "fleet":
+            return None
+        return protocol_mod.FleetProducer(clients, self._fleet_fwd, chunk=self.fleet_chunk)
+
+    def _consume_epoch(self, consumer, clients, queue, shares, steps_per_epoch,
+                       fleet=None, faults=None):
+        """Drive one epoch and return ``(losses, server_params, opt_state,
+        step, drive_stats)``; the bookkeeping around it is shared with the
+        fused-queue subclass, which keeps the two engines in lockstep."""
+        n_before = len(consumer.losses)
+        d = protocol_mod.drive_protocol(
+            clients, consumer, queue, shares,
+            consumer.step_count + steps_per_epoch, threaded=self.threaded,
+            fleet=fleet, faults=faults, pop_timeout=self.pop_timeout,
+            pop_retries=self.pop_retries, pop_backoff=self.pop_backoff,
+        )
+        # slice by the count BEFORE the drive: a quorum halt can end an
+        # epoch short
+        return (consumer.losses[n_before:], consumer.params,
+                consumer.opt_state, consumer.step_count, d)
+
+    def _assemble_fault_stats(self, frun, clients, error=None):
+        """The ``fault_stats`` report: the plan, the halt state, per-client
+        fault counters, per-client releases produced and, with the guard on,
+        each hospital's own (ε, δ) spend this run."""
+        fs: Dict[str, Any] = {
+            "plan": None, "halted": False, "halt_reason": None,
+            "client_error": None,
+        }
+        if frun is not None:
+            fs.update(frun.stats())
+        if clients is not None:
+            produced = [int(c.releases) for c in clients]
+            fs["releases_per_client"] = produced
+            if self.guard.enabled:
+                fs["per_client_privacy"] = per_client_report(self.tc.privacy, produced)
+        if error is not None:
+            fs["client_error"] = repr(error.cause)
+            fs["client_error_id"] = error.client_id
+        return fs
+
+    def run(self, state, shards, *, epochs, steps_per_epoch, eval_fn=None,
+            faults: Optional[FaultPlan] = None):
+        if faults is not None and faults.n_clients != self.tc.n_clients:
+            raise ValueError(
+                f"FaultPlan covers {faults.n_clients} clients but the config "
+                f"has n_clients={self.tc.n_clients}"
+            )
+        shares = np.asarray(self.tc.data_shares, np.float64)
+        shares = (shares / shares.sum()).tolist()
+        queue = FeatureQueue(max_size=self.queue_size, per_client_cap=self.per_client_cap)
+        clients = self._make_clients(state, shards)
+        fleet = self._make_fleet(clients)
+        # the last run's queue and fleet producer, for a caller's audit
+        # (``len(queue)``, ``fleet.dispatches``)
+        self.queue, self.fleet = queue, fleet
+        consumer = self._make_consumer(state, queue)
+        # one FaultRun spans the run: its transport streams are keyed on the
+        # canonical step at fit time, the schedule on the server step
+        frun = faults.start_run(int(state["step"])) if faults is not None else None
+        dropped = drained = 0
+        history, self.step_metrics = [], []
+        new_state = state
+        try:
+            for ep in range(epochs):
+                losses, server_params, opt_state, step, d = self._consume_epoch(
+                    consumer, clients, queue, shares, steps_per_epoch, fleet, frun,
+                )
+                dropped += d["dropped"]
+                drained += d["drained"]
+                self.losses.extend(losses)
+                self.step_metrics.append({"loss": np.asarray(losses, np.float32)})
+                rec = {"epoch": ep, "loss": finite_mean(losses), "server_steps": step}
+                # the budget: the WORST-CASE client's releases this run (every
+                # produced batch left the privacy layer; a down client's
+                # counter holds still)
+                released = max(c.releases for c in clients)
+                new_state = {
+                    "client_banks": [c.params for c in clients],
+                    "server": server_params,
+                    "opt": opt_state,
+                    "step": step,
+                    "privacy": budget_advance(state["privacy"], self.tc.privacy, released)
+                    if self.guard.enabled else state["privacy"],
+                }
+                if eval_fn is not None:
+                    rec.update({f"val_{k}": v
+                                for k, v in eval_fn(self.to_canonical(new_state)).items()})
+                history.append(rec)
+                if d.get("halted"):
+                    rec["halted"] = True
+                    break  # the quorum policy ended the run cleanly
+        except ClientLoopError as e:
+            # surface the exception, with the audit trail in place
+            self.fault_stats = self._assemble_fault_stats(frun, clients, e)
+            self.stats = {**queue.stats(), "dropped": dropped, "drained": drained,
+                          "privacy": budget_report(self.tc.privacy, new_state["privacy"])}
+            raise
+        self.stats = {**queue.stats(), "dropped": dropped, "drained": drained,
+                      "privacy": budget_report(self.tc.privacy, new_state["privacy"])}
+        self.fault_stats = self._assemble_fault_stats(frun, clients)
+        return new_state, history
+
+    def to_canonical(self, state):
+        return {
+            "client_banks": stack_pytrees(state["client_banks"]),
+            "server": state["server"],
+            "opt": state["opt"],
+            "step": torch.tensor(int(state["step"]), dtype=torch.int32, device=self.device),
+            "privacy": state["privacy"],
+        }
+
+    def from_canonical(self, canonical):
+        return {
+            "client_banks": unstack_pytree(canonical["client_banks"], self.tc.n_clients),
+            "server": canonical["server"],
+            "opt": canonical["opt"],
+            "step": int(canonical["step"]),
+            "privacy": canonical["privacy"],
+        }
+
+
+# ------------------------------------------------------------- fused-queue
+@register_engine("fused-queue")
+class FusedQueueEngine(ProtocolEngine):
+    """The async-queue arrival semantics with the trunk updates batched, as
+    the reference's: the same clients, queue, ``drive_protocol`` arrival
+    order and accounting as ``protocol-async``, but a ``BankedConsumer``
+    accepts each epoch's arrivals into a ``FeatureBank`` and one replay
+    (``trainer.make_server_bank_runner``, the same step a slot) then steps
+    the trunk, so a run is bit for bit protocol-async's. The releases stay
+    on the device. Checkpoints interchange with protocol-async's.
+    ``steps_per_epoch`` is only the bank's chunk size (the step counter and
+    the clients' seed base are absolute); one epoch's releases live on the
+    device at once. The reference's ``unroll`` has no counterpart: the
+    replay is a loop."""
+
+    name = "fused-queue"
+    _client_as_numpy = False
+
+    def __init__(self, adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, **kw):
+        super().__init__(adapter, tc, opt, **kw)
+        self._run_bank = make_server_bank_runner(adapter, opt, tc.grad_clip,
+                                                 step_fn=self._server_step)
+
+    def _make_consumer(self, state, queue):
+        self._server_params, self._opt_state = state["server"], state["opt"]
+        return protocol_mod.BankedConsumer(queue, step_count=int(state["step"]))
+
+    def _consume_epoch(self, consumer, clients, queue, shares, steps_per_epoch,
+                       fleet=None, faults=None):
+        """Bank one epoch of arrivals, then replay the bank; everything else
+        is ProtocolEngine's, line for line."""
+        step_before = consumer.step_count
+        consumer.bank = bank = FeatureBank(steps_per_epoch)
+        d = protocol_mod.drive_protocol(
+            clients, consumer, queue, shares,
+            step_before + steps_per_epoch, threaded=self.threaded,
+            fleet=fleet, faults=faults, pop_timeout=self.pop_timeout,
+            pop_retries=self.pop_retries, pop_backoff=self.pop_backoff,
+        )
+        if len(bank) == 0:
+            # a quorum halt can end an epoch before a single item arrived
+            return [], self._server_params, self._opt_state, consumer.step_count, d
+        self._server_params, self._opt_state, _, losses = self._run_bank(
+            self._server_params, self._opt_state, step_before, *bank.stacked(self.device)
+        )
+        epoch_losses = losses.cpu().tolist()[: len(bank)]  # the valid slots
+        return (epoch_losses, self._server_params, self._opt_state,
+                consumer.step_count, d)
+
+
 class SplitSession:
     """The unified engine surface.
 
     ``SplitSession(adapter, config, opt, engine="auto", seed=0,
-    device=None)``: ``engine`` is a registry name (see
+    device=None, **engine_options)``: ``engine`` is a registry name (see
     ``available_engines()``) or a prebuilt engine; ``device`` ``None`` is
-    the card (it raises without one), and the tests pass ``"cpu"``.
+    the card (it raises without one), and the tests pass ``"cpu"``;
+    ``engine_options`` go to the engine factory (``threaded=``,
+    ``production=``, ``queue_size=``, ... for the queue engines).
     """
 
     def __init__(self, adapter: SplitAdapter, config: SplitTrainConfig,
                  opt: Optimizer, engine: Any = "auto", *, mesh=None, seed: int = 0,
-                 device=None):
+                 device=None, **engine_options):
         if mesh is not None:
             raise ValueError("mesh= is not ported yet: the port trains on one device "
                              f"(device=...) with the engines {available_engines()}")
@@ -266,7 +576,10 @@ class SplitSession:
             if factory is None:
                 why = "is not ported yet" if engine in NOT_PORTED else "is unknown"
                 raise ValueError(f"engine {engine!r} {why}; available: {available_engines()}")
-            engine = factory(adapter, config, opt, device=self.device)
+            engine = factory(adapter, config, opt, device=self.device, **engine_options)
+        elif engine_options:
+            raise ValueError("engine options apply only when engine is a registry name; "
+                             "configure the prebuilt engine instance directly")
         self.engine = engine
         self.seed = seed
         self.guard = PrivacyGuard(config.privacy)
@@ -274,22 +587,31 @@ class SplitSession:
         self.history: List[Dict[str, float]] = []
 
     def fit(self, shards: Shards, *, epochs: int, steps_per_epoch: int,
-            eval_fn: EvalFn = None, faults=None) -> List[Dict[str, float]]:
-        """Train ``epochs x steps_per_epoch`` steps and return this call's
-        history (also appended to ``self.history``): each epoch's mean of
-        every metric; ``eval_fn``, given the canonical state after each
-        epoch, adds ``val_`` keys. ``step_metrics`` holds the per-step
-        values."""
-        if faults is not None:
-            raise ValueError("faults= is not ported yet (core/faults.py); the port's "
-                             f"engines {available_engines()} train without fault injection")
+            eval_fn: EvalFn = None,
+            faults: Optional[FaultPlan] = None) -> List[Dict[str, float]]:
+        """Train ``epochs x steps_per_epoch`` engine-native steps and return
+        this call's history (also appended to ``self.history``): each
+        epoch's mean of every metric; ``eval_fn``, given the canonical state
+        after each epoch, adds ``val_`` keys. ``step_metrics`` holds the
+        per-step values. ``faults``, a :class:`FaultPlan`, injects its
+        failures into the drive (queue engines only) and fills
+        ``fault_stats``."""
         if len(shards) != self.config.n_clients:
             raise ValueError(f"{len(shards)} shards for n_clients={self.config.n_clients}")
         if steps_per_epoch < 1:
             raise ValueError(f"steps_per_epoch must be >= 1, got {steps_per_epoch}")
+        kwargs: Dict[str, Any] = {}
+        if faults is not None:
+            if not getattr(self.engine, "supports_faults", False):
+                raise ValueError(
+                    f"engine {self.engine.name!r} does not support faults=; "
+                    "fault injection models the multi-site transport, which "
+                    "only the queue engines (protocol-async, fused-queue) have"
+                )
+            kwargs["faults"] = faults
         self._native, history = self.engine.run(
             self._native, shards, epochs=epochs, steps_per_epoch=steps_per_epoch,
-            eval_fn=eval_fn)
+            eval_fn=eval_fn, **kwargs)
         self.history.extend(history)
         return history
 
@@ -297,6 +619,13 @@ class SplitSession:
     def step_metrics(self) -> List[Dict[str, np.ndarray]]:
         """The last fit's per-step metrics, one ``{metric: [T]}`` an epoch."""
         return self.engine.step_metrics
+
+    @property
+    def fault_stats(self) -> Dict[str, Any]:
+        """The last fit's fault report (plan, halt state, per-client
+        releases and budget, transport counters); ``{}`` for engines that
+        take no ``faults=``."""
+        return getattr(self.engine, "fault_stats", {})
 
     @property
     def state(self):
@@ -355,7 +684,10 @@ class SplitSession:
         meta = {"engine": self.engine.name, "adapter": self.adapter.name,
                 "n_clients": self.config.n_clients,
                 "privacy_releases": int(state["privacy"]["releases"]),
-                "epochs_done": self.engine._epochs_done, **(metadata or {})}
+                **(metadata or {})}
+        epochs_done = getattr(self.engine, "_epochs_done", None)
+        if epochs_done is not None:  # the queue engines' schedule runs on the step
+            meta["epochs_done"] = epochs_done
         return save_checkpoint(directory, int(state["step"]), state, meta)
 
     def restore(self, path: str) -> dict:
@@ -366,6 +698,6 @@ class SplitSession:
         state, manifest = load_checkpoint(path, self.device, like=self.state)
         self._native = self.engine.from_canonical(state)
         epochs_done = manifest.get("metadata", {}).get("epochs_done")
-        if epochs_done is not None:
+        if epochs_done is not None and hasattr(self.engine, "_epochs_done"):
             self.engine._epochs_done = int(epochs_done)
         return manifest

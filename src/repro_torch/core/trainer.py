@@ -32,6 +32,11 @@ when the budget advances.
 ``make_looped_step`` is the seed's per-client Python loop (concatenated
 per-client batches, an unweighted loss, tree-shaped optimizer state), the
 numerical reference.
+
+The queue engines' server half: ``make_server_step`` is one trunk update on
+one popped batch (``protocol.SplitServer``), and
+``make_server_bank_runner`` the fused-queue engine's replay of a bank of
+arrivals, a loop over the slots that calls the same step.
 """
 from __future__ import annotations
 
@@ -395,6 +400,61 @@ def make_looped_step(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer
         return new_state, metrics
 
     return init_state, step
+
+
+def make_server_step(adapter: SplitAdapter, opt: Optimizer, grad_clip: float = 1.0):
+    """One trunk update on one popped batch, the per-pop step of
+    ``protocol.SplitServer`` (``repro/core/protocol.py:283-295``):
+    ``step(server_params, opt_state, step, features, labels) -> (params,
+    opt_state, loss)``: the gradient of the adapter loss in the trunk's
+    parameters, leaf-wise ``clip_by_global_norm``, ``opt.update`` at the
+    int32 ``step`` and ``apply_updates``. The moments stay trees."""
+
+    def step(params, opt_state, step, features, labels):
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        with torch.enable_grad():
+            loss = adapter.loss(adapter.server_forward(live, features), labels)
+            leaves = tree_leaves(live)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grad_of = {id(p): torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)}
+        with torch.no_grad():
+            grads, _ = clip_by_global_norm(tree_map(lambda p: grad_of[id(p)], live), grad_clip)
+            t = torch.tensor(int(step), dtype=torch.int32, device=leaves[0].device)
+            updates, new_opt = opt.update(grads, opt_state, params, t)
+            return apply_updates(params, updates), new_opt, loss.detach()
+
+    return step
+
+
+def make_server_bank_runner(adapter: SplitAdapter, opt: Optimizer, grad_clip: float = 1.0,
+                            *, step_fn=None):
+    """The fused-queue engine's server half: replay a stacked bank of queue
+    arrivals as trunk updates, as ``repro.core.trainer.make_server_bank_runner``.
+
+    ``run_bank(server_params, opt_state, step0, features, labels, valid) ->
+    (server_params, opt_state, step, losses)``: ``features`` ``[K, b, ...]``
+    in queue order, ``labels`` ``[K, b, ...]``, ``valid`` a ``[K]`` bool mask
+    (``FeatureBank.stacked``). The reference's ``lax.scan`` is a Python loop
+    here that calls ``step_fn`` (default :func:`make_server_step`), the very
+    step ``protocol.SplitServer`` takes a pop, so a replay is bit for bit
+    the per-pop run over the same items. An invalid slot is an identity
+    update (parameters, moments and the step hold still) with a NaN loss."""
+    step_fn = step_fn if step_fn is not None else make_server_step(adapter, opt, grad_clip)
+
+    def run_bank(server_params, opt_state, step0, features, labels, valid):
+        step = int(step0)
+        losses = []
+        for k, ok in enumerate(torch.as_tensor(valid).tolist()):
+            if not ok:
+                losses.append(torch.full((), float("nan"), device=features.device))
+                continue
+            server_params, opt_state, loss = step_fn(server_params, opt_state, step,
+                                                     features[k], labels[k])
+            losses.append(loss)
+            step += 1
+        return server_params, opt_state, step, torch.stack(losses)
+
+    return run_bank
 
 
 # ------------------------------------------------------------------ epochs

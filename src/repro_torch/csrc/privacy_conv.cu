@@ -31,6 +31,18 @@
 // shape. Any B, H, W (even), Cin >= 1 and Cout >= 1; a tile or a channel
 // group past the edge computes zeros and stores nothing. The kernel
 // allocates nothing.
+//
+// Banked. The fleet's production cycle (protocol.py:89-101 in the JAX
+// package: jax.vmap of the client forward over N queue items, each with
+// its own client's bank) is one launch of the same kernel over N x b
+// images: x [N, b, H, W, Cin], stacked banks w [C, 3, 3, Cin, Cout] and
+// b [C, Cout], cids [N] int32, noise and out [N, b, H/2, W/2, Cout]. A
+// block decodes its image as before, its item n = image / b from that, and
+// stages the weights and biases of bank cids[n]; the arithmetic after the
+// staging is the unbanked kernel's, in the same order, so each item's output
+// has the bits of an unbanked launch on that item. A bank index outside
+// [0, C) writes NaN over the block's outputs instead of reading past the
+// banks.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -50,7 +62,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
 privacy_conv_tile(const float* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ bias, const float* __restrict__ noise,
                   float* __restrict__ out, int H, int W, int Cin, int Cout,
-                  float noise_scale, int cpb, int cblocks, int tiles_x, int tiles_y) {
+                  float noise_scale, int cpb, int cblocks, int tiles_x, int tiles_y,
+                  const int* __restrict__ cids, int per_item, int n_banks) {
   constexpr int CC = CIN > 0 ? CIN : CIN_CHUNK;
   __shared__ float halo[CC * PLANE];
   __shared__ __align__(16) float ws[9 * CC * MAX_CPB];
@@ -65,6 +78,15 @@ privacy_conv_tile(const float* __restrict__ x, const float* __restrict__ w,
   const int ty = bid % tiles_y;
   const int b = bid / tiles_y;
   const int co0 = cb * cpb;
+  // banked: this image's item reads the weights and biases of its bank
+  bool bad_bank = false;
+  if (cids != nullptr) {
+    const int bank = cids[b / per_item];
+    bad_bank = bank < 0 || bank >= n_banks;
+    const long long k = bad_bank ? 0 : bank;
+    w += k * 9 * Cin * Cout;
+    bias += k * Cout;
+  }
   // the thread: its channel group fastest, then its pixel in the tile
   const int ngroups = cpb / CPT;
   const int cg = threadIdx.x % ngroups, pix = threadIdx.x / ngroups;
@@ -139,6 +161,10 @@ privacy_conv_tile(const float* __restrict__ x, const float* __restrict__ w,
     v[c] = fmaxf(fmaxf(fmaxf(acc[c][0] + bv, acc[c][1] + bv),
                        fmaxf(acc[c][2] + bv, acc[c][3] + bv)), 0.f);
   }
+  if (bad_bank) {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) v[c] = __int_as_float(0x7fc00000);
+  }
   const long long o = (((long long)b * Ho + i) * Wo + j) * Cout + co;
   if (VEC4) {
     if (noise_scale > 0.f) {
@@ -163,14 +189,41 @@ privacy_conv_tile(const float* __restrict__ x, const float* __restrict__ w,
 template <int CIN, bool VEC4>
 int launch(const float* x, const float* w, const float* bias, const float* noise, float* out,
            int B, int H, int W, int Cin, int Cout, float noise_scale, int cpb,
-           cudaStream_t stream) {
+           const int* cids, int per_item, int n_banks, cudaStream_t stream) {
   const int tiles_x = (W / 2 + TW - 1) / TW, tiles_y = (H / 2 + TH - 1) / TH;
   const int cblocks = (Cout + cpb - 1) / cpb;
   const long long blocks = (long long)B * tiles_y * tiles_x * cblocks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   privacy_conv_tile<CIN, VEC4><<<(unsigned)blocks, TH * TW * (cpb / CPT), 0, stream>>>(
-      x, w, bias, noise, out, H, W, Cin, Cout, noise_scale, cpb, cblocks, tiles_x, tiles_y);
+      x, w, bias, noise, out, H, W, Cin, Cout, noise_scale, cpb, cblocks, tiles_x, tiles_y,
+      cids, per_item, n_banks);
   return (int)cudaGetLastError();
+}
+
+// The checks and the dispatch of both entry points; cids null is unbanked.
+int launch_plan(const float* x, const float* w, const float* bias, const int* cids,
+                const float* noise, float* out, int B, int per_item, int n_banks, int H, int W,
+                int Cin, int Cout, float noise_scale, int cin_variant, int channels_per_block,
+                int vec4, void* stream) {
+  if (noise_scale <= 0.f) noise = nullptr;
+  const uintptr_t addr = (uintptr_t)out | (uintptr_t)noise;
+  const bool ok = B >= 0 && H >= 0 && W >= 0 && H % 2 == 0 && W % 2 == 0 && Cin >= 1 &&
+                  Cout >= 1 && (cin_variant == 0 || (cin_variant == 1 && Cin == 1)) &&
+                  channels_per_block % CPT == 0 && channels_per_block >= CPT &&
+                  channels_per_block <= MAX_CPB &&
+                  (!vec4 || (Cout % 4 == 0 && addr % 16 == 0)) &&
+                  (noise_scale <= 0.f || noise != nullptr) &&
+                  (cids == nullptr || (per_item >= 1 && n_banks >= 1 && B % per_item == 0));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if ((long long)B * H * W == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int cpb = channels_per_block;
+#define PRIVACY_CONV_LAUNCH(C, V) \
+  launch<C, V>(x, w, bias, noise, out, B, H, W, Cin, Cout, noise_scale, cpb, cids, per_item, \
+               n_banks, s)
+  if (cin_variant == 1) return vec4 ? PRIVACY_CONV_LAUNCH(1, true) : PRIVACY_CONV_LAUNCH(1, false);
+  return vec4 ? PRIVACY_CONV_LAUNCH(0, true) : PRIVACY_CONV_LAUNCH(0, false);
+#undef PRIVACY_CONV_LAUNCH
 }
 
 }  // namespace
@@ -185,21 +238,22 @@ extern "C" int privacy_conv_launch_plan(const float* x, const float* w, const fl
                                         const float* noise, float* out, int B, int H, int W,
                                         int Cin, int Cout, float noise_scale, int cin_variant,
                                         int channels_per_block, int vec4, void* stream) {
-  if (noise_scale <= 0.f) noise = nullptr;
-  const uintptr_t addr = (uintptr_t)out | (uintptr_t)noise;
-  const bool ok = B >= 0 && H >= 0 && W >= 0 && H % 2 == 0 && W % 2 == 0 && Cin >= 1 &&
-                  Cout >= 1 && (cin_variant == 0 || (cin_variant == 1 && Cin == 1)) &&
-                  channels_per_block % CPT == 0 && channels_per_block >= CPT &&
-                  channels_per_block <= MAX_CPB &&
-                  (!vec4 || (Cout % 4 == 0 && addr % 16 == 0)) &&
-                  (noise_scale <= 0.f || noise != nullptr);
-  if (!ok) return (int)cudaErrorInvalidValue;
-  if ((long long)B * H * W == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  const int cpb = channels_per_block;
-#define PRIVACY_CONV_LAUNCH(C, V) \
-  launch<C, V>(x, w, bias, noise, out, B, H, W, Cin, Cout, noise_scale, cpb, s)
-  if (cin_variant == 1) return vec4 ? PRIVACY_CONV_LAUNCH(1, true) : PRIVACY_CONV_LAUNCH(1, false);
-  return vec4 ? PRIVACY_CONV_LAUNCH(0, true) : PRIVACY_CONV_LAUNCH(0, false);
-#undef PRIVACY_CONV_LAUNCH
+  return launch_plan(x, w, bias, nullptr, noise, out, B, 1, 1, H, W, Cin, Cout, noise_scale,
+                     cin_variant, channels_per_block, vec4, stream);
+}
+
+// The banked launch: N items of `per_item` images each (B = N * per_item
+// images in x, noise and out), item n reading bank cids[n] of the n_banks
+// stacked in w [n_banks, 3, 3, Cin, Cout] and bias [n_banks, Cout]. The
+// plan is the unbanked plan of the B images; the checks are the same, and
+// per_item >= 1, n_banks >= 1, B % per_item == 0, cids not null.
+extern "C" int privacy_conv_banked_launch_plan(const float* x, const float* w,
+                                               const float* bias, const int* cids,
+                                               const float* noise, float* out, int B,
+                                               int per_item, int n_banks, int H, int W, int Cin,
+                                               int Cout, float noise_scale, int cin_variant,
+                                               int channels_per_block, int vec4, void* stream) {
+  if (cids == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_plan(x, w, bias, cids, noise, out, B, per_item, n_banks, H, W, Cin, Cout,
+                     noise_scale, cin_variant, channels_per_block, vec4, stream);
 }

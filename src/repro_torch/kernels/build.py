@@ -39,6 +39,8 @@ _c_ptr, _c_int, _c_ll, _c_float = (ctypes.c_void_p, ctypes.c_int,
 # the plan that their wrappers choose (``conv_plan``, ``release_plan``).
 SIGNATURES = {
     "privacy_conv": {"privacy_conv_launch_plan": (_c_ptr,) * 5 + (_c_int,) * 5
+                     + (_c_float, _c_int, _c_int, _c_int, _c_ptr),
+                     "privacy_conv_banked_launch_plan": (_c_ptr,) * 6 + (_c_int,) * 7
                      + (_c_float, _c_int, _c_int, _c_int, _c_ptr)},
     "dp_release": {"dp_release_launch_plan": (_c_ptr,) * 4 + (_c_ll, _c_ll, _c_float, _c_float,
                                                               _c_int, _c_ll, _c_int, _c_ptr)},

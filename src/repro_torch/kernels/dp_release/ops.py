@@ -9,15 +9,17 @@ does (``repro/kernels/dp_release/ops.py:27-48``): the forward runs the
 kernel, the backward recomputes through the plain version, and the noise
 gets no gradient. ``launches`` counts kernel launches (one a call, or the
 two of a split row) and ``plans`` the calls of each plan (keyed by its
-sorted items). :func:`release_plan` chooses how a shape runs from the shape
-and the card's SM count alone, so every branch can be tested on the CPU and
-named in a report.
+sorted items), both updated by :func:`count` under a lock, since client
+threads may launch at once. :func:`release_plan` chooses how a shape runs
+from the shape and the card's SM count alone, so every branch can be tested
+on the CPU and named in a report.
 """
 from __future__ import annotations
 
 import collections
 import functools
 import math
+import threading
 from typing import Optional
 
 import torch
@@ -27,6 +29,7 @@ from repro_torch.kernels.dp_release.ref import dp_release_ref
 
 launches = 0
 plans: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
 
 THREADS = 512        # a block; fixed in the source
 MIN_CHUNK = 16384    # features a block sums at least when a row is split
@@ -78,12 +81,20 @@ def plan_for(x: torch.Tensor, noise: Optional[torch.Tensor], sigma: float) -> di
                         all(t.data_ptr() % 16 == 0 for t in read))
 
 
+def count(plan: dict) -> None:
+    """One call of ``plan``: its launches (one, or the two of a split row)
+    and the call, under a lock."""
+    global launches
+    with _count_lock:
+        launches += plan["launches"]
+        plans[tuple(sorted(plan.items()))] += 1
+
+
 def _launch(x, noise, clip_norm: float, sigma: float,
             plan: Optional[dict] = None) -> torch.Tensor:
     """The kernel on CUDA tensors, with :func:`plan_for`'s plan unless
     ``plan`` is given (to time one plan against another); the source
     refuses a plan that does not fit the shape."""
-    global launches
     if x.dim() < 1:
         raise ValueError("dp_release wants x [B, ...]")
     use_noise = sigma > 0.0
@@ -110,8 +121,7 @@ def _launch(x, noise, clip_norm: float, sigma: float,
             float(clip_norm), float(sigma), k, plan["chunk"], int(plan["vec4"]), stream)
     if err:
         raise RuntimeError(f"dp_release kernel launch failed: CUDA error {err}")
-    launches += 1 if k == 1 else 2
-    plans[tuple(sorted(plan.items()))] += 1
+    count(plan)
     return out
 
 

@@ -15,9 +15,12 @@ kernel does not take, a failed build or a refused launch raises.
 
 Forward only, as the TPU kernel is (it has no VJP): on a CUDA tensor that
 requires grad under grad mode the wrapper raises rather than hand back an
-output cut off from autograd. ``launches`` counts kernel launches.
+output cut off from autograd. ``launches`` counts kernel launches
+(:func:`count`, under a lock).
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -25,6 +28,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 launches = 0
+_count_lock = threading.Lock()
+
+
+def count() -> None:
+    """One kernel launch, under a lock: threads may launch at once."""
+    global launches
+    with _count_lock:
+        launches += 1
 
 # head dims the kernel is compiled for: those of the registered configs
 # (csrc/flash_attention.cu dispatch_hd)
@@ -67,7 +78,6 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window: int = 0) -> t
 def _launch(q, k, v, causal: bool, window: int, q_rows=None) -> torch.Tensor:
     """Launch the kernel; ``q_rows`` (one of ``Q_ROWS[dtype]``) overrides
     the block's query rows that the kernel picks for itself."""
-    global launches
     B, S, H, KV, hd = _check_shapes(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         raise RuntimeError("flash_attention's CUDA kernel is forward only (the TPU kernel "
@@ -99,7 +109,7 @@ def _launch(q, k, v, causal: bool, window: int, q_rows=None) -> torch.Tensor:
                else lib.flash_attention_launch_tiles(*args, q_rows, stream))
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA error {err}")
-    launches += 1
+    count()
     return out
 
 

@@ -9,23 +9,34 @@ raises. :class:`PrivacyConv` makes it differentiable the way the JAX
 forward runs the kernel, the backward recomputes through the plain version.
 ``launches`` counts kernel launches and ``plans`` the calls of each plan
 (keyed by its sorted items), so a run can show that its main path went
-through the kernel and with which variant. :func:`conv_plan` chooses the
+through the kernel and with which variant; client threads launch at once,
+so :func:`count` updates both under a lock. :func:`conv_plan` chooses the
 kernel's variant from the shapes alone, so every branch can be tested on
 the CPU and named in a report.
+
+:func:`privacy_conv_banked_forward` is the fleet's layer: N queue items of
+b images, each with its own client's bank, in one launch of the same
+kernel (the counterpart of ``jax.vmap`` over the Pallas call in
+``repro/core/protocol.py:89-101``), bit for bit what N unbanked launches
+give; its plain version is ``ref.privacy_conv_banked_ref``.
 """
 from __future__ import annotations
 
 import collections
 import functools
+import threading
 from typing import Optional
+
+import math
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.privacy_conv.ref import privacy_conv_ref
+from repro_torch.kernels.privacy_conv.ref import privacy_conv_banked_ref, privacy_conv_ref
 
 launches = 0
 plans: collections.Counter = collections.Counter()
+_count_lock = threading.Lock()
 
 TILE = (8, 8)          # pooled pixels a block (rows, columns); fixed in the source
 CHANNELS_PER_THREAD = 4
@@ -66,17 +77,35 @@ def plan_for(x: torch.Tensor, w: torch.Tensor, noise: Optional[torch.Tensor],
              noise_scale: float) -> dict:
     """The plan :func:`_launch` runs for these tensors: float4 where the
     noise it reads is 16-byte aligned (the output is a fresh allocation,
-    which is)."""
-    B, H, W, cin = x.shape
+    which is). A banked ``x`` ``[N, b, H, W, Cin]`` gets the plan of its
+    N*b images, with ``"banked": True``."""
+    *lead, H, W, cin = x.shape
     aligned = noise_scale <= 0.0 or noise.data_ptr() % 16 == 0
-    return conv_plan(B, H, W, cin, w.shape[-1], aligned)
+    plan = conv_plan(math.prod(lead), H, W, cin, w.shape[-1], aligned)
+    return {**plan, "banked": True} if len(lead) == 2 else plan
+
+
+def count(plan: dict) -> None:
+    """One launch of ``plan``: ``launches`` and ``plans`` move together,
+    under a lock, since several client threads may launch at once."""
+    global launches
+    with _count_lock:
+        launches += 1
+        plans[tuple(sorted(plan.items()))] += 1
+
+
+def _check_inputs(tensors, x) -> None:
+    for t in tensors:
+        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("privacy_conv kernel takes contiguous float32 tensors "
+                             f"on one CUDA device; got {t.dtype} on {t.device}, "
+                             f"contiguous={t.is_contiguous()}")
 
 
 def _launch(x, w, b, noise, noise_scale: float, plan: Optional[dict] = None) -> torch.Tensor:
     """The kernel on CUDA tensors, with :func:`plan_for`'s plan unless
     ``plan`` is given (to time one variant against another); the source
     refuses a plan that does not fit the shape."""
-    global launches
     if x.dim() != 4 or w.dim() != 4 or b.dim() != 1:
         raise ValueError(f"want x [B,H,W,Cin], w [3,3,Cin,Cout], b [Cout]; got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
@@ -92,11 +121,7 @@ def _launch(x, w, b, noise, noise_scale: float, plan: Optional[dict] = None) -> 
     tensors = [x, w, b] + ([noise] if use_noise else [])
     if use_noise and tuple(noise.shape) != out_shape:
         raise ValueError(f"noise {tuple(noise.shape)} != output {out_shape}")
-    for t in tensors:
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("privacy_conv kernel takes contiguous float32 tensors "
-                             f"on one CUDA device; got {t.dtype} on {t.device}, "
-                             f"contiguous={t.is_contiguous()}")
+    _check_inputs(tensors, x)
     lib = build.library("privacy_conv")
     out = torch.empty(out_shape, device=x.device, dtype=torch.float32)
     if plan is None:
@@ -110,8 +135,49 @@ def _launch(x, w, b, noise, noise_scale: float, plan: Optional[dict] = None) -> 
             plan["channels_per_block"], int(plan["vec4"]), stream)
     if err:
         raise RuntimeError(f"privacy_conv kernel launch failed: CUDA error {err}")
-    launches += 1
-    plans[tuple(sorted(plan.items()))] += 1
+    count(plan)
+    return out
+
+
+def _launch_banked(x, w, b, cids, noise, noise_scale: float,
+                   plan: Optional[dict] = None) -> torch.Tensor:
+    """The banked kernel on CUDA tensors (``cids`` int32 on the card), with
+    :func:`plan_for`'s plan unless ``plan`` is given."""
+    if x.dim() != 5 or w.dim() != 5 or b.dim() != 2 or cids.dim() != 1:
+        raise ValueError(f"want x [N,b,H,W,Cin], w [C,3,3,Cin,Cout], b [C,Cout], cids [N]; "
+                         f"got {tuple(x.shape)}, {tuple(w.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(cids.shape)}")
+    N, per_item, H, W, cin = x.shape
+    C, cout = w.shape[0], w.shape[-1]
+    if H % 2 or W % 2:
+        raise ValueError(f"H and W must be even, got {H}x{W}")
+    if tuple(w.shape) != (C, 3, 3, cin, cout) or tuple(b.shape) != (C, cout):
+        raise ValueError(f"w {tuple(w.shape)} / b {tuple(b.shape)} do not match "
+                         f"Cin={cin}")
+    if cids.shape[0] != N or cids.dtype != torch.int32 or cids.device != x.device:
+        raise ValueError(f"cids must be [N={N}] int32 on {x.device}; got "
+                         f"{tuple(cids.shape)} {cids.dtype} on {cids.device}")
+    out_shape = (N, per_item, H // 2, W // 2, cout)
+    use_noise = noise_scale > 0.0
+    if use_noise and tuple(noise.shape) != out_shape:
+        raise ValueError(f"noise {tuple(noise.shape)} != output {out_shape}")
+    _check_inputs([x, w, b] + ([noise] if use_noise else []), x)
+    if not cids.is_contiguous():
+        raise ValueError("cids must be contiguous")
+    lib = build.library("privacy_conv")
+    out = torch.empty(out_shape, device=x.device, dtype=torch.float32)
+    if plan is None:
+        plan = plan_for(x, w, noise, noise_scale)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.privacy_conv_banked_launch_plan(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), cids.data_ptr(),
+            noise.data_ptr() if use_noise else None, out.data_ptr(),
+            N * per_item, per_item, C, H, W, cin, cout, float(noise_scale),
+            plan["cin_variant"], plan["channels_per_block"], int(plan["vec4"]), stream)
+    if err:
+        raise RuntimeError(f"privacy_conv banked kernel launch failed: CUDA error {err}")
+    count(plan)
     return out
 
 
@@ -125,6 +191,24 @@ def privacy_conv_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"privacy_conv runs on CUDA or the CPU, not {x.device}")
     return _launch(x, w, b, noise, noise_scale)
+
+
+def privacy_conv_banked_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                                cids: torch.Tensor, noise: Optional[torch.Tensor],
+                                noise_scale: float = 0.0) -> torch.Tensor:
+    """The fleet's layer, forward only: x [N, b, H, W, Cin], stacked banks
+    w [C, 3, 3, Cin, Cout] and b [C, Cout], ``cids`` [N] int32 (item n's
+    bank), noise [N, b, H/2, W/2, Cout] (read when ``noise_scale > 0``).
+    One banked kernel launch for a CUDA ``x``, the plain version
+    (``privacy_conv_banked_ref``) for a CPU ``x``; any other device
+    raises."""
+    if noise_scale > 0.0 and noise is None:
+        raise ValueError("noise_scale > 0 requires noise")
+    if x.device.type == "cpu":
+        return privacy_conv_banked_ref(x, w, b, cids, noise, noise_scale=noise_scale)
+    if x.device.type != "cuda":
+        raise ValueError(f"privacy_conv runs on CUDA or the CPU, not {x.device}")
+    return _launch_banked(x, w, b, cids, noise, noise_scale)
 
 
 class PrivacyConv(torch.autograd.Function):

@@ -24,3 +24,16 @@ def privacy_conv_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if noise_scale > 0.0:
         y = y + noise_scale * noise.float()
     return y.to(x.dtype)
+
+
+def privacy_conv_banked_ref(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                            cids, noise: Optional[torch.Tensor], *,
+                            noise_scale: float = 0.0) -> torch.Tensor:
+    """The banked layer, item by item: x [N, b, H, W, Cin], stacked banks
+    w [C, 3, 3, Cin, Cout] and b [C, Cout], ``cids`` [N] (each item's bank),
+    noise [N, b, H/2, W/2, Cout] -> [N, b, H/2, W/2, Cout]; item n is
+    :func:`privacy_conv_ref` of ``x[n]`` with bank ``cids[n]``."""
+    return torch.stack([
+        privacy_conv_ref(x[n], w[c], b[c], None if noise is None else noise[n],
+                         noise_scale=noise_scale)
+        for n, c in enumerate(torch.as_tensor(cids).tolist())])

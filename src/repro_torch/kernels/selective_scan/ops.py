@@ -10,9 +10,12 @@ the Pallas interpreter. There is no other fallback: a CUDA tensor the kernel
 does not take, a failed build or a refused launch raises.
 
 Forward only, as the TPU kernel is: on a CUDA tensor that requires grad
-under grad mode the wrapper raises. ``launches`` counts kernel launches.
+under grad mode the wrapper raises. ``launches`` counts kernel launches
+(:func:`count`, under a lock).
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -20,6 +23,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 launches = 0
+_count_lock = threading.Lock()
+
+
+def count() -> None:
+    """One kernel launch, under a lock: threads may launch at once."""
+    global launches
+    with _count_lock:
+        launches += 1
 
 MAX_STATE = 128  # d_state the kernel holds in registers: 32 lanes x 4 states
 # lanes of a channel the kernel can take for a d_state up to the key; the
@@ -31,7 +42,6 @@ def _launch(u, dt, B, C, A, D, d_tile: int, t_chunk: int, lanes=None) -> torch.T
     """Launch the kernel; ``lanes`` (one of ``LANES[k]`` for the least key
     ``k >= d_state``) overrides the lanes of a channel that the kernel picks
     for itself."""
-    global launches
     if u.dim() != 3 or A.dim() != 2:
         raise ValueError(f"want u [Bsz,S,di] and A [di,st]; got {tuple(u.shape)}, "
                          f"{tuple(A.shape)}")
@@ -68,7 +78,7 @@ def _launch(u, dt, B, C, A, D, d_tile: int, t_chunk: int, lanes=None) -> torch.T
                else lib.selective_scan_launch_lanes(*args, lanes, stream))
     if err:
         raise RuntimeError(f"selective_scan kernel launch failed: CUDA error {err}")
-    launches += 1
+    count()
     return y
 
 

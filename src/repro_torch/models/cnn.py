@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from repro_torch.common.bridge import tree_map
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.paper_models import CNNConfig
-from repro_torch.kernels.privacy_conv.ops import privacy_conv
+from repro_torch.kernels.privacy_conv.ops import privacy_conv, privacy_conv_banked_forward
 from repro_torch.models.layers import add_privacy_noise, dense_init
 
 
@@ -121,6 +121,38 @@ def client_forward(params, cfg: CNNConfig, x: torch.Tensor,
             )
         else:
             x = _run_stage(convs, x)
+            if last:
+                x = add_privacy_noise(x, scale, noise)
+    if not stages:
+        x = add_privacy_noise(x, scale, noise)
+    return x
+
+
+def fleet_client_forward(params, cfg: CNNConfig, cids: torch.Tensor, xs: torch.Tensor,
+                         noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`client_forward` of N items at once, forward only: item n with
+    batch ``xs[n]`` ([N, b, H, W, C]) on bank ``cids[n]`` of the stacked
+    banks ``params["client"]`` (every leaf ``[n_banks, ...]``), ``noise``
+    [N, b, ...] of the output's shape. With ``cfg.use_kernel`` each
+    single-conv stage is ONE banked ``privacy_conv`` launch (the JAX package
+    vmaps the Pallas call over the items); other stages run the plain ops
+    item by item on their banks. Per item the bits are those of
+    :func:`client_forward`."""
+    stages = params["client"]["stages"]
+    scale = cfg.privacy_noise if noise is not None else 0.0
+    x = xs
+    for si, convs in enumerate(stages):
+        last = si == len(stages) - 1
+        if cfg.use_kernel and len(convs) == 1:
+            x = privacy_conv_banked_forward(
+                x, convs[0]["w"], convs[0]["b"], cids,
+                noise if (last and scale > 0.0) else None,
+                noise_scale=scale if last else 0.0,
+            )
+        else:
+            x = torch.stack([_run_stage([tree_map(lambda a, c=c: a[c], cv) for cv in convs],
+                                        x[n])
+                             for n, c in enumerate(cids.tolist())])
             if last:
                 x = add_privacy_noise(x, scale, noise)
     if not stages:

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.common.tree import tree_leaves
 from repro_torch.configs import COVID_CNN
 from repro_torch.core import trainer
 from repro_torch.core.adapters import cnn_adapter
@@ -27,7 +28,7 @@ from repro_torch.kernels.dp_release import ops as dp_ops
 from repro_torch.kernels.dp_release.ref import dp_release_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.privacy_conv import ops as pc_ops
-from repro_torch.kernels.privacy_conv.ref import privacy_conv_ref
+from repro_torch.kernels.privacy_conv.ref import privacy_conv_banked_ref, privacy_conv_ref
 from repro_torch.kernels.selective_scan import ops as ss_ops
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.optim import adamw
@@ -361,3 +362,75 @@ def test_e2e_covid_step_kernels_against_plain(cuda, sigma):
         torch.testing.assert_close(k_m[k], p_m[k], atol=1e-4, rtol=1e-4)
     k_grad, p_grad = k_state["opt"]["mu"] / 0.1, p_state["opt"]["mu"] / 0.1
     assert float((k_grad - p_grad).norm() / p_grad.norm()) <= 1e-3
+
+
+# the banked launch of fleet production: the COVID-CT cycle (7/2/1 items of
+# 21 rows), a generic Cin with float4, and the scalar variant
+@pytest.mark.parametrize("N,b,H,W,cin,cout,scale,cids,banks", [
+    (10, 21, 64, 64, 1, 16, 0.05, (0,) * 7 + (1,) * 2 + (2,), 3),
+    (4, 3, 32, 32, 16, 32, 0.1, (2, 0, 1, 2), 3), (3, 2, 10, 14, 3, 5, 0.1, (1, 0, 1), 2)])
+def test_privacy_conv_banked_kernel(cuda, N, b, H, W, cin, cout, scale, cids, banks):
+    """One launch for N items, each on its bank: within TOL of the plain
+    banked version, and bit for bit N unbanked launches."""
+    g = torch.Generator().manual_seed(1)
+    x, w = _randn(g, N, b, H, W, cin), _randn(g, banks, 3, 3, cin, cout, scale=0.1)
+    bb, nz = _randn(g, banks, cout, scale=0.1), _randn(g, N, b, H // 2, W // 2, cout)
+    c = torch.tensor(cids, dtype=torch.int32, device="cuda")
+    before = pc_ops.launches
+    got = pc_ops.privacy_conv_banked_forward(x, w, bb, c, nz, scale)
+    torch.cuda.synchronize()
+    assert pc_ops.launches == before + 1
+    torch.testing.assert_close(got, privacy_conv_banked_ref(x, w, bb, c, nz, noise_scale=scale),
+                               **TOL)
+    items = torch.stack([pc_ops.privacy_conv_forward(x[n], w[k], bb[k], nz[n], scale)
+                         for n, k in enumerate(cids)])
+    assert torch.equal(got, items)
+
+
+def test_privacy_conv_banked_refusals(cuda):
+    """A bank index out of range writes NaN over its item (the kernel
+    reads no bank past the stack); cids of another type or shape raise."""
+    g = torch.Generator().manual_seed(2)
+    x, w = _randn(g, 2, 3, 8, 8, 1), _randn(g, 2, 3, 3, 1, 4)
+    bb, nz = _randn(g, 2, 4), _randn(g, 2, 3, 4, 4, 4)
+    out = pc_ops.privacy_conv_banked_forward(
+        x, w, bb, torch.tensor([1, 5], dtype=torch.int32, device="cuda"), nz, 0.1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out[0]).all() and torch.isnan(out[1]).all()
+    with pytest.raises(ValueError, match="int32"):
+        pc_ops.privacy_conv_banked_forward(x, w, bb, torch.tensor([0, 1], device="cuda"), nz, 0.1)
+    with pytest.raises(ValueError, match=r"cids must be \[N=2\]"):
+        pc_ops.privacy_conv_banked_forward(
+            x, w, bb, torch.tensor([0], dtype=torch.int32, device="cuda"), nz, 0.1)
+
+
+@pytest.mark.parametrize("engine", ["protocol-async", "fused-queue"])
+def test_queue_engine_fleet_launches_and_bits(cuda, engine):
+    """A narrow CNN through a queue engine on the card: the fleet launches
+    one banked privacy_conv and one dp_release a production cycle and is
+    bit for bit the per-item run, which launches one of each a release."""
+    from repro_torch.core import SplitSession, SplitTrainConfig
+
+    cfg = dataclasses.replace(COVID_CNN, input_hw=(16, 16), stages=((8, 1), (16, 1)),
+                              dense_units=(8,), use_kernel=True)
+    shards = split_clients(*make_covid_ct(60, hw=16, seed=0), shares=(0.7, 0.2, 0.1))
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for production in ("fleet", "per-item"):
+            s = SplitSession(cnn_adapter(cfg),
+                             SplitTrainConfig(server_batch=12,
+                                              privacy=DPConfig(clip_norm=1.0, use_kernel=True)),
+                             adamw(1e-3), engine=engine, device="cuda", threaded=False,
+                             production=production)
+            pc0, dp0 = pc_ops.launches, dp_ops.launches
+            s.fit(shards, epochs=2, steps_per_epoch=5)
+            runs[production] = (s, pc_ops.launches - pc0, dp_ops.launches - dp0)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (f, fpc, fdp), (p, ppc, pdp) = runs["fleet"], runs["per-item"]
+    items = sum(f.fault_stats["releases_per_client"])
+    assert fpc == fdp == f.engine.fleet.dispatches and ppc == pdp == items
+    assert f.engine.losses == p.engine.losses
+    for a, b in zip(tree_leaves(f.state), tree_leaves(p.state)):
+        assert torch.equal(a, b)

@@ -17,9 +17,10 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-# the training path's modules among them
+# the training path's and the queue engines' modules among them
 assert {"repro_torch.common.tree", "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
-        "repro_torch.core.trainer", "repro_torch.core.session"} <= set(names), names
+        "repro_torch.core.trainer", "repro_torch.core.session", "repro_torch.core.faults",
+        "repro_torch.core.protocol", "repro_torch.core.queue"} <= set(names), names
 import numpy as np, torch
 from repro_torch.common.bridge import to_numpy, to_torch
 bits = np.array([0x3F80, 0x7FC1, 0x8000], np.uint16)

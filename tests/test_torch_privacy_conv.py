@@ -110,3 +110,40 @@ def test_every_conv_variant_is_reachable():
         ops.conv_plan(1, 9, 8, 1, 4)
     with pytest.raises(ValueError, match="no plan"):
         ops.conv_plan(1, 8, 8, 0, 4)
+
+
+# (N, b, H, W, Cin, Cout, noise_scale, cids, banks): a fleet cycle of the
+# COVID-CT client stage at batch 2, a generic Cin, and Cout 5 (scalar)
+BANKED = [(10, 2, 16, 16, 1, 16, 0.05, (0,) * 7 + (1,) * 2 + (2,), 3),
+          (4, 3, 8, 8, 16, 32, 0.1, (2, 0, 1, 2), 3),
+          (3, 2, 10, 14, 3, 5, 0.0, (1, 0, 1), 2)]
+
+
+@pytest.mark.parametrize("N,b,H,W,cin,cout,scale,cids,banks", BANKED)
+def test_banked_matches_vmapped_jax(N, b, H, W, cin, cout, scale, cids, banks):
+    """The banked plain version against ``jax.vmap`` of the JAX reference
+    over the banks gathered by ``cids``, what the fleet's vmapped Pallas
+    call computes (``repro/core/protocol.py:89-101``); and it is, bit for
+    bit, the unbanked layer item by item."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((N, b, H, W, cin), np.float32)
+    w = (0.1 * rng.standard_normal((banks, 3, 3, cin, cout))).astype(np.float32)
+    bb = (0.1 * rng.standard_normal((banks, cout))).astype(np.float32)
+    nz = rng.standard_normal((N, b, H // 2, W // 2, cout), np.float32)
+    idx = jnp.asarray(cids)
+    want = np.asarray(jax.vmap(lambda xx, ww, bbb, nn: jax_privacy_conv_ref(
+        xx, ww, bbb, nn, noise_scale=scale))(jnp.asarray(x), jnp.take(jnp.asarray(w), idx, 0),
+                                             jnp.take(jnp.asarray(bb), idx, 0),
+                                             jnp.asarray(nz)))
+    before = ops.launches
+    tc = torch.tensor(cids, dtype=torch.int32)
+    got = ops.privacy_conv_banked_forward(*_t(x, w, bb), tc, torch.from_numpy(nz), scale)
+    assert ops.launches == before  # a CPU tensor never reaches the kernel
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    items = torch.stack([privacy_conv_ref(*_t(x[n], w[c], bb[c], nz[n]), noise_scale=scale)
+                         for n, c in enumerate(cids)])
+    assert torch.equal(got, items)
+    plan = ops.plan_for(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(nz), scale)
+    assert plan["banked"] and plan["blocks"] == ops.conv_plan(N * b, H, W, cin, cout)["blocks"]
+    with pytest.raises(ValueError, match="requires noise"):
+        ops.privacy_conv_banked_forward(*_t(x, w, bb), tc, None, 0.1)

@@ -187,13 +187,15 @@ def test_unported_paths_raise():
     with pytest.raises(ValueError, match="mesh"):
         port_session("auto", mesh=object())
     s = port_session("auto")
-    with pytest.raises(ValueError, match="faults"):
+    # faults= is rejected by a non-queue engine, with the reference's message
+    with pytest.raises(ValueError, match="does not support faults"):
         s.fit(shards, epochs=1, steps_per_epoch=1, faults=object())
     with pytest.raises(ValueError, match="audit_privacy"):
         s.audit_privacy(xt)
     with pytest.raises(ValueError, match="steps_per_epoch"):
         s.fit(shards, epochs=1, steps_per_epoch=0)
-    assert available_engines() == ["auto", "fused-scan", "fused-stepwise", "looped-ref"]
+    assert available_engines() == ["auto", "fused-queue", "fused-scan", "fused-stepwise",
+                                   "looped-ref", "protocol-async"]
 
 
 def test_readme_port_quickstart_runs():
@@ -201,7 +203,7 @@ def test_readme_port_quickstart_runs():
     ``text`` fence, since the docs job installs no torch)."""
     with open(os.path.join(REPO, "README.md")) as f:
         blocks = re.findall(r"```(?:python|text)\n(.*?)```", f.read(), re.DOTALL)
-    port = [b for b in blocks if "repro_torch" in b]
+    port = [b for b in blocks if "repro_torch" in b and "evaluate" in b]
     assert len(port) == 1
     scope = {}
     exec(compile(port[0], "README.md", "exec"), scope)
