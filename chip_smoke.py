@@ -56,6 +56,27 @@ the CPU run, and a quorum halt (``queue_faults``); with client threads
 ``ClientLoopError``); and times the banked launch and the four engine and
 production pairs (``queue_time``).
 
+Then it drives FedAvg, the paper's Table 5 baseline, through
+``SplitSession(engine="fedavg")``: three hospitals each train the full
+COVID-CT CNN at its published width on local batches of 32, the guard at
+the cut (``fedavg_covid``: one ``privacy_conv`` launch and one
+``dp_release`` call a local step, 30 of each in 2 rounds x 5 local steps,
+``evaluate`` counted apart and printed beside train_covid's, the budget at
+10 releases, each round's average recomputed on the CPU, a bit-for-bit
+restore, and every local step retaken from its state by the plain path on
+the card and the CPU at the calibrated sigma and on the card at sigma 0);
+then the inversion audit of the trained privacy layer (``audit_covid``:
+``SplitSession.audit_privacy`` over sigma 0, 0.5 and 4 with 120 attack
+steps each, 363 ``privacy_conv`` launches, and ``guard_noise_sweep(...,
+use_kernel=True)`` with its 3 ``dp_release`` releases; every attack step
+retaken on the plain card and CPU paths with the flipped signs of the
+gradient counted, and the sweeps' reconstructions held against the
+session's: on the card within float32 rounding, below one flipped sign,
+and on the CPU within the spread read over 16 start points by
+``tools/audit_spread.py``); and times the local step and the attack
+step with the kernels on and off, and both kernels at the slice's shapes
+(``fedavg_time``).
+
 Then it drives the LM path, the LM kernels' public entry points
 ``flash_attention`` and ``selective_scan``, at the full widths of the repo's
 LM configs (llama3.2-1b, mixtral-8x7b with its sliding window,
@@ -64,8 +85,8 @@ each output against its plain version on the card and small float32 and
 bfloat16 cases against the CPU, and times the attention cases (the bfloat16
 ones beside SDPA) and the scan, each tile or lane choice of a kernel against
 the one it beat. It prints one JSON object per phase and a ``kernels`` line
-with every ported kernel (with its launches on the serving, training and
-queue paths). The last line is ``{"ok": true, "device": ...}``.
+with every ported kernel (with its launches on the serving, training,
+queue, FedAvg and audit paths). The last line is ``{"ok": true, "device": ...}``.
 
 Any failed phase raises and the script exits non-zero; so does a machine
 without a CUDA card. The weights are random, drawn from seed 0. TF32 is off
@@ -82,6 +103,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -99,6 +121,7 @@ from repro_torch.core import (  # noqa: E402
     SplitSession,
     SplitTrainConfig,
 )
+from repro_torch.core import fedavg as fedavg_mod  # noqa: E402
 from repro_torch.core.adapters import cnn_adapter, mlp_adapter  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
     _plan_round_robin_cycle,
@@ -131,7 +154,9 @@ from repro_torch.kernels.privacy_conv.ref import (  # noqa: E402
 from repro_torch.kernels.selective_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.privacy import DPConfig, PrivacyGuard  # noqa: E402
+from repro_torch.privacy import DPConfig, PrivacyGuard, composed_epsilon  # noqa: E402
+from repro_torch.privacy import audit as audit_mod  # noqa: E402
+from repro_torch.privacy.audit import guard_noise_sweep, invert_features  # noqa: E402
 from repro_torch.serving import SplitInferenceServer, poisson_trace  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM3 rate, float32 rate
@@ -176,8 +201,11 @@ SCAN_CASE = ("falcon-mamba-7b", 4, 2048)
 # TABLE1 one, Cin 16 and Cin 40 (generic, float4; one and three chunks of 16
 # input channels, two and three channel blocks), and Cout 5, 6, 7 (scalar;
 # Cin 3, 1 and 20) at H, W that are no multiples of the 16-pixel tile;
-# "train_covid" is a client's batch of train_covid's step (21 of 63 rows)
+# "train_covid" is a client's batch of train_covid's step (21 of 63 rows);
+# "fedavg_local" a FedAvg local batch and "audit" the attacked images, both
+# without model noise (FedAvg's and the attack's client forward draw none)
 CONV_CASES = {"covid": (64, 64, 64, 1, 16, 0.05), "train_covid": (21, 64, 64, 1, 16, 0.05),
+              "fedavg_local": (32, 64, 64, 1, 16, 0.0), "audit": (4, 64, 64, 1, 16, 0.0),
               "table1": (64, 32, 32, 3, 16, 0.05),
               "cin16": (8, 32, 32, 16, 32, 0.0), "cin40": (2, 34, 16, 40, 36, 0.1),
               "cin3_cout5": (3, 10, 14, 3, 5, 0.1), "cin1_cout6": (2, 18, 22, 1, 6, 0.1),
@@ -217,6 +245,31 @@ ADAM_B1 = 0.9  # adamw's default first-moment decay
 # moves one position's contribution, a few sparse elements (the CPU against
 # an H100 at one step: 78 of 458,305 elements apart by up to 5.6e-5)
 GRAD_TOL = 1e-3
+# FedAvg (fedavg_covid): 2 rounds x 5 local steps of batch 32 a hospital;
+# the audit (audit_covid): 4 images, 120 attack steps a sigma, the step of
+# privacy/audit.py (lr 0.05, sign term lr * 0.01), whose flipped sign(g)
+# moves an element by SIGN_STEP; the sweep's largest sigma for the release
+# check; attack steps a timed call
+FEDAVG_ROUNDS, FEDAVG_STEPS, LOCAL_BATCH = 2, 5, 32
+AUDIT_SIGMAS, AUDIT_STEPS, AUDIT_ROWS = (0.0, 0.5, 4.0), 120, 4
+ATTACK_LR = 0.05
+SIGN_STEP = 2 * ATTACK_LR * 0.01
+AUDIT_RELEASE_SIGMA = 4.0
+ATTACK_TIME_STEPS = 40
+# the audit sweeps against the session's (kernel) sweep, whole 120-step
+# attacks. On the card no sign of g flips (the forced steps) and the
+# reconstructions part by float32 rounding alone: 2.98e-8 in L1 at most
+# over the 16 start points of tools/audit_spread.py. The limit sits 30x above that and 1000x below one flipped
+# sign's displacement (SIGN_STEP), so a single flip fails it.
+AUDIT_CARD_L1 = 1e-6
+# Against the CPU signs do flip (up to 3 a step), and a flip does not stay
+# one element: through the coupling of the gradient it spreads over
+# thousands (23 flips left 8,154 elements parted), so no flip count bounds
+# the spread. The limits are read instead: the largest of each quantity
+# over the 16 start-point seeds of tools/audit_spread.py (every row, on an
+# H100 80GB HBM3 at 700 W: L1 15.954905, MSE 4.6744943e-5, PSNR
+# 2.9840470e-3 dB, NCC 6.5067783e-3), times 3, rounded up.
+AUDIT_CPU_SPREAD = {"l1": 48.0, "mse": 1.5e-4, "psnr_db": 9e-3, "ncc": 2e-2}
 
 
 def emit(obj) -> None:
@@ -351,12 +404,15 @@ def check_banked(gen, dev, errs: dict) -> dict:
     return inputs
 
 
-def conv_work(B, H, W, cin, cout) -> dict:
+def conv_work(B, H, W, cin, cout, scale) -> dict:
     out = B * (H // 2) * (W // 2) * cout
-    nbytes = 4 * (B * H * W * cin + 9 * cin * cout + cout + 2 * out)
+    # at noise_scale 0 the kernel never reads the noise (privacy_conv.cu
+    # sets it to null), so its bytes and multiply-add count only above 0
+    noisy = scale > 0
+    nbytes = 4 * (B * H * W * cin + 9 * cin * cout + cout + (2 if noisy else 1) * out)
     # 9*Cin multiply-adds per pre-pool value, bias and ReLU on each, then
-    # three max and the noise multiply-add per pooled value
-    flops = B * H * W * cout * (2 * 9 * cin + 2) + out * 5
+    # three max (and the noise multiply-add) per pooled value
+    flops = B * H * W * cout * (2 * 9 * cin + 2) + out * (5 if noisy else 3)
     return bound(nbytes, flops)
 
 
@@ -364,8 +420,10 @@ def release_cases(sigma: float) -> dict:
     """``{case: (shape, sigma)}`` of the check phase: the serving cut (k = 1)
     and the MURA cut (k > 1) with and without noise, the training path's
     releases (63 rows a step: train_covid's cut, k = 1, and train_mura's,
-    k = 3) with and without noise, and F % 4 != 0 (scalar) and B = 1 on
-    each side of the split."""
+    k = 3) with and without noise, F % 4 != 0 (scalar) and B = 1 on
+    each side of the split, the queue's cycle, a FedAvg local step's
+    release (32 rows, k = 1) with and without noise, and the audit's (4
+    rows at the sweep's largest sigma)."""
     return {"covid_sigma0": ((64, 32, 32, 16), 0.0), "covid": ((64, 32, 32, 16), sigma),
             "mura": ((8, 112, 112, 64), sigma), "mura_sigma0": ((8, 112, 112, 64), 0.0),
             "train_covid": ((63, 32, 32, 16), sigma),
@@ -375,7 +433,10 @@ def release_cases(sigma: float) -> dict:
             "odd_f_split": ((2, 50001), sigma), "odd_f_split_sigma0": ((2, 50001), 0.0),
             "odd_f": ((5, 7, 5), sigma), "odd_f_sigma0": ((5, 7, 5), 0.0),
             "b1_split": ((1, 112, 112, 64), sigma), "b1": ((1, 100), sigma),
-            "fleet_cycle": ((210, 32, 32, 16), sigma)}
+            "fleet_cycle": ((210, 32, 32, 16), sigma),
+            "fedavg_local": ((32, 32, 32, 16), sigma),
+            "fedavg_local_sigma0": ((32, 32, 32, 16), 0.0),
+            "audit": ((4, 32, 32, 16), AUDIT_RELEASE_SIGMA)}
 
 
 def other_release_plan(plan: dict, rows: int, feats: int, sm_count: int) -> dict:
@@ -595,7 +656,8 @@ def train_covid(dev, smi: str, tmp: str) -> dict:
     forced = {"calibrated": train_forced(dev, shards, None, ("plain_card", "cpu")),
               "sigma0": train_forced(dev, shards, 0.0, ("plain_card",))}
     torch.backends.cudnn.deterministic = False
-    return {"covid": want, "shards": shards, "forced": forced}
+    return {"covid": want, "shards": shards, "forced": forced,
+            "evaluate": {k: ev[k] for k in ("loss", "accuracy")}}
 
 
 def train_forced(dev, shards, noise_scale, against) -> dict:
@@ -789,14 +851,15 @@ def train_time(dev, smi: str, shards) -> dict:
 
 # ==== the queue engines: protocol-async and fused-queue at COVID-CT width
 class Recorder:
-    """Wraps an engine's function, keeping each call's arguments and result
-    (references: the functions do not mutate their inputs)."""
+    """Wraps an engine's or a module's function, keeping each call's
+    positional arguments and result (references: the functions do not
+    mutate their inputs)."""
 
     def __init__(self, fn):
         self.fn, self.calls = fn, []
 
-    def __call__(self, *args):
-        out = self.fn(*args)
+    def __call__(self, *args, **kwargs):
+        out = self.fn(*args, **kwargs)
         self.calls.append((args, out))
         return out
 
@@ -1191,7 +1254,7 @@ def queue_time(dev, smi: str, inputs: dict, cycle_release: tuple) -> dict:
     p_ms = float(np.median([host_fed_ms(plain, iters=20, warmup=int(r == 0))
                             for r in range(3)]))
     # the unbanked work of the N*b images, plus the other banks and the cids
-    work = conv_work(N * b, H, W, cin, cout)
+    work = conv_work(N * b, H, W, cin, cout, scale)
     nbytes = work["bytes"] + 4 * ((w.shape[0] - 1) * (9 * cin * cout + cout) + len(cids))
     conv = {"case": "privacy_conv_banked/fleet_covid", "ms": k_ms, "plain_ms": p_ms,
             "plain_timer": "host_fed", "unbanked_x10_ms": u_ms, "plan": pc_ops.plan_for(x, w, nz, scale),
@@ -1225,6 +1288,441 @@ def queue_time(dev, smi: str, inputs: dict, cycle_release: tuple) -> dict:
           **{f"{k}_steps_per_s": float(np.median(v)) for k, v in rates.items()},
           **{f"{k}_steps_per_s_all": v for k, v in rates.items()}})
     return {"privacy_conv": conv, "dp_release": release}
+
+
+# ==== FedAvg (paper Table 5) and the inversion audit (paper §IV-D2)
+def recording(obj, name):
+    """``with recording(obj, "name") as rec:`` records ``obj.name`` (a
+    :class:`Recorder`) for the block, and puts it back however it ends."""
+    return mock.patch.object(obj, name, Recorder(getattr(obj, name)))
+
+
+def fedavg_session(on: bool, device, noise_scale=None) -> SplitSession:
+    """The paper's FL baseline (Table 5; examples/covid_ct_split.py) at the
+    COVID-CT CNN's published width: three hospitals (shares 0.7/0.2/0.1)
+    each train the full model on local batches of 32, the guard at epsilon
+    1 at the cut (``noise_scale`` pins its sigma), adamw(1e-3); ``on``
+    routes the client stage and the release through the kernels."""
+    cfg = dataclasses.replace(COVID_CNN, use_kernel=on)
+    dp = DPConfig(epsilon=1.0, delta=1e-5, clip_norm=1.0, use_kernel=on,
+                  noise_scale=noise_scale)
+    return SplitSession(cnn_adapter(cfg), SplitTrainConfig(privacy=dp), adamw(1e-3),
+                        engine="fedavg", seed=0, device=device, local_batch=LOCAL_BATCH)
+
+
+def flat_moment(opt_state) -> torch.Tensor:
+    """AdamW's first-moment tree as one CPU vector, in leaf order."""
+    return torch.cat([a.reshape(-1) for a in tree_leaves(opt_state["mu"])]).cpu()
+
+
+def fedavg_gate(sess, calls, against) -> dict:
+    """Every recorded local step (``calls``) of a kernel run retaken from its own state,
+    batch and noise by the plain path on the card (``"plain_card"``) and on
+    the CPU (``"cpu"``), the paths named in ``against``: loss within
+    TRAIN_TOL, the clipped gradient (read back from AdamW's first moment,
+    ``(mu' - b1 mu) / (1 - b1)``) within GRAD_TOL in relative L2 norm, as
+    ``train_forced``. Returns the worst errors."""
+    tc = sess.config
+    plain = fedavg_mod.make_local_sgd(
+        cnn_adapter(dataclasses.replace(COVID_CNN, use_kernel=False)),
+        dataclasses.replace(tc, privacy=dataclasses.replace(tc.privacy, use_kernel=False)),
+        sess.opt)
+    to_cpu = lambda t: tree_map(lambda a: a.cpu(), t)  # noqa: E731
+    worst = {name: {"loss": 0.0, "grad_rel_l2": 0.0, "grad_max_abs_err": 0.0}
+             for name in against}
+    reset_counts()
+    for i, (args, (_, k_opt, k_loss)) in enumerate(calls):
+        mu0 = flat_moment(args[1])
+        k_grad = (flat_moment(k_opt) - ADAM_B1 * mu0) / (1 - ADAM_B1)
+        for name, w in worst.items():
+            _, o_opt, o_loss = plain(*(args if name == "plain_card" else to_cpu(args)))
+            w["loss"] = max(w["loss"], max_err(o_loss.cpu().reshape(1), k_loss.cpu().reshape(1),
+                                               **TRAIN_TOL, what=f"{name} local step {i} loss"))
+            o_grad = (flat_moment(o_opt) - ADAM_B1 * mu0) / (1 - ADAM_B1)
+            rel = float((o_grad - k_grad).norm() / k_grad.norm())
+            if not rel <= GRAD_TOL:
+                raise AssertionError(f"{name} local step {i}: gradient relative L2 error {rel}")
+            w["grad_rel_l2"] = max(w["grad_rel_l2"], rel)
+            w["grad_max_abs_err"] = max(w["grad_max_abs_err"],
+                                        float((o_grad - k_grad).abs().max()))
+    if pc_ops.launches or dp_ops.launches:
+        raise AssertionError("the plain local step launched a kernel")
+    return worst
+
+
+def fedavg_run(dev, noise_scale=None):
+    """One kernel fit of FEDAVG_ROUNDS rounds x FEDAVG_STEPS local steps,
+    its local steps and averages recorded and its counts read around it."""
+    sess = fedavg_session(True, dev, noise_scale)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    with (recording(sess.engine, "_local_sgd") as steps,
+          recording(fedavg_mod, "average_models") as averages):
+        history = sess.fit(queue_shards(), epochs=FEDAVG_ROUNDS, steps_per_epoch=FEDAVG_STEPS)
+    torch.cuda.synchronize()
+    return sess, history, kernel_counts(), steps, averages, time.perf_counter() - t0
+
+
+def fedavg_covid(dev, smi: str, tmp: str, split_eval: dict) -> dict:
+    """``fedavg_covid``, ``fedavg_restore`` and ``fedavg_forced``: the FedAvg
+    engine at COVID-CT width, cuDNN deterministic. Gates: one
+    ``privacy_conv`` launch and one ``dp_release`` call (k = 1) a local step,
+    2 x 3 x 5 of each (the backward recomputes through the plain versions
+    and launches nothing), ``evaluate`` counted apart (one bank: the banks
+    are identical); the budget at 10 releases (one a local step, the
+    reference's count); each round's average recomputed on the CPU from
+    the recorded local models within 1e-6; a save and restore that
+    continues a round bit for bit; and every local step retaken from its
+    state by the plain path on the card and on the CPU at the calibrated
+    sigma, and on the card at sigma 0. Returns the launch counts and the
+    trained session."""
+    torch.backends.cudnn.deterministic = True
+    xt, yt = make_covid_ct(128, hw=64, seed=1)
+    n = FEDAVG_ROUNDS * len(SHARES) * FEDAVG_STEPS
+    sess, history, ran, steps, averages, wall = fedavg_run(dev)
+    (release,) = ran["dp_release"]["plans"]
+    (conv,) = ran["privacy_conv"]["plans"]
+    got = {k: v["launches"] for k, v in ran.items()}
+    if (got != {"privacy_conv": n, "dp_release": n} or release["plan"]["blocks_per_row"] != 1
+            or release["calls"] != n or conv["calls"] != n):
+        raise AssertionError(f"FedAvg launches {ran}, want {n} of each at k = 1")
+    losses = [h["mean_local_loss"] for h in history]
+    if len(history) != FEDAVG_ROUNDS or not np.isfinite(losses).all():
+        raise AssertionError(f"FedAvg history {history}")
+    report = sess.privacy_report()
+    want_eps = composed_epsilon(sess.config.privacy, FEDAVG_ROUNDS * FEDAVG_STEPS)
+    if (report["releases"] != FEDAVG_ROUNDS * FEDAVG_STEPS or report["basic_epsilon"] != 10.0
+            or report["basic_epsilon"] != want_eps["basic_epsilon"]
+            or report["advanced_epsilon"] != want_eps["advanced_epsilon"]):
+        raise AssertionError(f"FedAvg budget {report}, want {want_eps}")
+    # each round's average, recomputed on the CPU from its three local models
+    avg_err = 0.0
+    to_cpu = lambda t: tree_map(lambda a: a.cpu(), t)  # noqa: E731
+    for args, out in averages.calls:
+        want = fedavg_mod.average_models([to_cpu(m) for m in args[0]], args[1])
+        avg_err = max(avg_err, max_err(
+            torch.cat([a.reshape(-1) for a in tree_leaves(out)]).cpu(),
+            torch.cat([a.reshape(-1) for a in tree_leaves(want)]), atol=1e-6, rtol=1e-6,
+            what="the round's average against the CPU"))
+    if len(averages.calls) != FEDAVG_ROUNDS:
+        raise AssertionError(f"{len(averages.calls)} averages, want {FEDAVG_ROUNDS}")
+    path = sess.save(os.path.join(tmp, "fedavg"))
+    reset_counts()
+    ev = sess.evaluate(xt, yt)
+    eval_counts = {k: v["launches"] for k, v in kernel_counts().items()}
+    if eval_counts != {"privacy_conv": 1, "dp_release": 0}:  # one bank scored, no release
+        raise AssertionError(f"FedAvg evaluate launches {eval_counts}")
+    emit({"phase": "fedavg_covid", "card": smi, "model": COVID_CNN.name, "engine": "fedavg",
+          "rounds": FEDAVG_ROUNDS, "local_steps": FEDAVG_STEPS, "local_batch": LOCAL_BATCH,
+          "sigma": report["sigma"], "tf32": False, "wall_s": wall,
+          "mean_local_losses": losses, "launches": got, "plans": ran,
+          "privacy": {k: report[k] for k in ("releases", "basic_epsilon", "advanced_epsilon",
+                                             "epsilon_basic_carried")},
+          "average_max_abs_err_vs_cpu": avg_err,
+          "evaluate": {k: ev[k] for k in ("loss", "accuracy")}, "evaluate_launches": eval_counts,
+          "split_learning_evaluate": split_eval,
+          "note": "evaluate beside train_covid's (split, e2e, 10 steps): the paper's split vs "
+                  "FL comparison on random weights after 10 steps, a result, not a gate"})
+
+    # ---- fedavg_forced at the calibrated sigma: this run's local steps
+    forced = {"calibrated": fedavg_gate(sess, steps.calls, ("plain_card", "cpu"))}
+
+    # ---- fedavg_restore: one more round, continued and restored, bit for bit
+    more = sess.fit(queue_shards(), epochs=1, steps_per_epoch=FEDAVG_STEPS)
+    restored = fedavg_session(True, dev)
+    restored.restore(path)
+    again = restored.fit(queue_shards(), epochs=1, steps_per_epoch=FEDAVG_STEPS)
+    if again != more or not state_equal(restored, sess):
+        raise AssertionError(f"the restored FedAvg run differs: {again} against {more}, max "
+                             f"abs err {tree_diff(restored.state, sess.state)}")
+    emit({"phase": "fedavg_restore", "round": int(restored.state["step"]),
+          "bit_identical": True, "history": again,
+          "releases": restored.privacy_report()["releases"]})
+
+    # ---- fedavg_forced: the sigma-0 kernel run's local steps against the
+    # plain card path (the calibrated run's were gated above)
+    zero, _, ran0, steps0, _, _ = fedavg_run(dev, noise_scale=0.0)
+    if {k: v["launches"] for k, v in ran0.items()} != {"privacy_conv": n, "dp_release": n}:
+        raise AssertionError(f"sigma-0 FedAvg launches {ran0}")
+    forced["sigma0"] = fedavg_gate(zero, steps0.calls, ("plain_card",))
+    emit({"phase": "fedavg_forced", "local_steps": n, "max_err": forced, "grad_tol": GRAD_TOL,
+          "sigma": {"calibrated": report["sigma"], "sigma0": 0.0}, "tf32": False,
+          "cudnn_deterministic": True, **TRAIN_TOL})
+    torch.backends.cudnn.deterministic = False
+    return {"launches": got, "session": sess, "evaluate_launches": eval_counts}
+
+
+def attack_step(fwd, target, x):
+    """One step of ``invert_features`` from ``x``: (loss, g, next x)."""
+    z = x.detach().requires_grad_(True)
+    with torch.enable_grad():
+        loss = torch.mean(torch.square(fwd(z) - target))
+        (g,) = torch.autograd.grad(loss, z)
+    with torch.no_grad():
+        return loss.detach(), g, torch.clamp(z - ATTACK_LR * torch.sign(g) * 0.01
+                                             - ATTACK_LR * g, 0.0, 1.0)
+
+
+def attack_gate(fwds, target, x0, steps) -> dict:
+    """Each step of the kernel attack retaken from its x by the plain path
+    on the card and on the CPU, against the same target: the loss within
+    KERNEL_TOL (it reads the kernel's forward values), and the next x within
+    KERNEL_TOL wherever ``sign(g)`` agrees; where it does not, the element
+    parts by at most SIGN_STEP (plus KERNEL_TOL), and those elements are
+    counted. The kernel's path is checked against ``invert_features``
+    itself, bit for bit."""
+    x, worst = x0, {}
+    for t in range(steps):
+        k_loss, k_g, k_next = attack_step(fwds["kernel"][0], target, x)
+        for name in ("plain_card", "cpu"):
+            fwd, where = fwds[name]
+            loss, g, nxt = attack_step(fwd, target.to(where), x.to(where))
+            w = worst.setdefault(name, {"loss": 0.0, "x_agreeing_sign": 0.0,
+                                        "x_flipped_sign": 0.0, "sign_flips": []})
+            w["loss"] = max(w["loss"], max_err(loss.cpu().reshape(1), k_loss.cpu().reshape(1),
+                                               **KERNEL_TOL, what=f"{name} attack step {t} loss"))
+            flip = (torch.sign(g).cpu() != torch.sign(k_g).cpu())
+            err = (nxt.cpu() - k_next.cpu()).abs()
+            agree = err[~flip]
+            if (agree > KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * k_next.cpu()[~flip].abs()).any():
+                raise AssertionError(f"{name} attack step {t}: x differs by {float(agree.max())} "
+                                     "where sign(g) agrees")
+            if flip.any() and float(err[flip].max()) > SIGN_STEP + KERNEL_TOL["atol"]:
+                raise AssertionError(f"{name} attack step {t}: a flipped element parts by "
+                                     f"{float(err[flip].max())}")
+            w["x_agreeing_sign"] = max(w["x_agreeing_sign"], float(agree.max()))
+            w["x_flipped_sign"] = max(w["x_flipped_sign"],
+                                      float(err[flip].max()) if flip.any() else 0.0)
+            w["sign_flips"].append(int(flip.sum()))
+        x = k_next
+    whole = invert_features(fwds["kernel"][0], target, x0.shape, steps=steps, x0=x0)
+    if not torch.equal(whole, x):
+        raise AssertionError("the retaken kernel steps differ from invert_features")
+    for w in worst.values():
+        flips = w.pop("sign_flips")
+        w.update(first_step_sign_flips=flips[0], max_sign_flips_a_step=max(flips),
+                 total_sign_flips=sum(flips))
+    return worst
+
+
+def audit_setup(dev, sess):
+    """The audited images (the first AUDIT_ROWS of hospital 0's shard),
+    hospital 0's bank, and the attack's forwards ``{path: (fn, device)}``:
+    the kernel, the plain version on the card, and the plain version on
+    the CPU."""
+    x = torch.as_tensor(queue_shards()[0][0][:AUDIT_ROWS], device=dev)
+    bank = tree_map(lambda a: a[0], sess.state["client_banks"])
+    cpu_bank = tree_map(lambda a: a.cpu(), bank)
+    adapters = {on: cnn_adapter(dataclasses.replace(COVID_CNN, use_kernel=on))
+                for on in (True, False)}
+    fwds = {"kernel": (lambda z: adapters[True].client_forward(bank, z, None), dev),
+            "plain_card": (lambda z: adapters[False].client_forward(bank, z, None), dev),
+            "cpu": (lambda z: adapters[False].client_forward(cpu_bank, z, None),
+                    torch.device("cpu"))}
+    return x, bank, fwds
+
+
+def audit_sweeps(sess, fwds, x, seed: int):
+    """The four sweeps of one start point and noise ``seed``: the session's
+    (``SplitSession.audit_privacy``, the adapter's kernel), the kernel's
+    with the release kernel, and the plain versions' on the card and on the
+    CPU. Returns ``(rows, launches, reconstructions)``, each by sweep."""
+    kw = dict(sigmas=AUDIT_SIGMAS, clip_norm=1.0, steps=AUDIT_STEPS, seed=seed)
+    sweeps, launches, recs = {}, {}, {}
+    for name, run in (
+            ("session", lambda: sess.audit_privacy(x, sigmas=AUDIT_SIGMAS, steps=AUDIT_STEPS,
+                                                   seed=seed)),
+            ("kernel_release", lambda: guard_noise_sweep(fwds["kernel"][0], x, use_kernel=True,
+                                                         **kw)),
+            ("plain_card", lambda: guard_noise_sweep(fwds["plain_card"][0], x, **kw)),
+            ("cpu", lambda: guard_noise_sweep(fwds["cpu"][0], x.cpu(), **kw))):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with recording(audit_mod, "invert_features") as rec:
+            sweeps[name] = run()
+        torch.cuda.synchronize()
+        launches[name] = {k: v["launches"] for k, v in kernel_counts().items()}
+        launches[name]["wall_s"] = time.perf_counter() - t0
+        recs[name] = [out.cpu() for _, out in rec.calls]
+    return sweeps, launches, recs
+
+
+def sweep_spread(sweeps, recs) -> dict:
+    """Each sweep's reconstructions against the session's, row by row: L1
+    distance, elements parted beyond KERNEL_TOL, the largest element's
+    distance, and the MSE, PSNR and NCC differences."""
+    spread = {}
+    for name in ("kernel_release", "plain_card", "cpu"):
+        e = spread[name] = {"l1": [], "parted": [], "max_abs": [], "mse": [], "psnr_db": [],
+                            "ncc": []}
+        for r, (a, b) in enumerate(zip(recs["session"], recs[name])):
+            diff = (b - a).abs()
+            e["l1"].append(float(diff.sum()))
+            e["parted"].append(int((diff > KERNEL_TOL["atol"]
+                                    + KERNEL_TOL["rtol"] * a.abs()).sum()))
+            e["max_abs"].append(float(diff.max()))
+            for k in ("mse", "psnr_db", "ncc"):
+                e[k].append(abs(sweeps["session"][r][k] - sweeps[name][r][k]))
+    return spread
+
+
+def sweep_limits(n_el: int, rows) -> dict:
+    """The sweep gate's limits by path, each a list over the session's
+    ``rows`` (the argument is at AUDIT_CARD_L1 and AUDIT_CPU_SPREAD). On
+    the card the L1 limit L bounds the metrics: with every value in [0, 1]
+    two reconstructions part in MSE by at most 2 L / N, in PSNR by
+    (10 / ln 10) of that over the smaller MSE, and in NCC by at most
+    2 L / |a - mean(a)|_2, orders below float32 rounding of the metrics
+    themselves, KERNEL_TOL's atol, which each limit adds."""
+    atol = KERNEL_TOL["atol"]
+    mse = 2 * AUDIT_CARD_L1 / n_el + atol
+    card = {"l1": [AUDIT_CARD_L1] * len(rows), "mse": [mse] * len(rows),
+            "ncc": [atol] * len(rows),
+            "psnr_db": [10 / math.log(10) * mse / (r["mse"] - mse) + atol for r in rows]}
+    cpu = {k: [v] * len(rows) for k, v in AUDIT_CPU_SPREAD.items()}
+    return {"kernel_release": card, "plain_card": card, "cpu": cpu}
+
+
+def audit_covid(dev, smi: str, sess) -> dict:
+    """``audit_covid``: the inversion audit of hospital 0's trained privacy
+    layer (the FedAvg state) at COVID-CT width. ``SplitSession.audit_privacy``
+    with the adapter's kernel (``privacy_conv`` a forward, 3 x (120 + 1)
+    launches; the session's sweep releases through the plain guard, as the
+    reference's) and ``guard_noise_sweep(..., use_kernel=True)``, which puts
+    ``dp_release`` on the audit path (3 releases). Gates: the launch counts;
+    every attack step of the kernel run retaken on the plain card and CPU
+    paths (:func:`attack_gate`); and the three sweeps' reconstructions
+    and MSE, PSNR and NCC against the session's, within
+    :func:`sweep_limits`. The MSE-vs-sigma rows are printed, not gated."""
+    torch.backends.cudnn.deterministic = True
+    x, bank, fwds = audit_setup(dev, sess)
+    sweeps, launches, recs = audit_sweeps(sess, fwds, x, seed=0)
+    per = len(AUDIT_SIGMAS) * (AUDIT_STEPS + 1)
+    want = {"session": (per, 0), "kernel_release": (per, len(AUDIT_SIGMAS)),
+            "plain_card": (0, 0), "cpu": (0, 0)}
+    for name, (pc, dp) in want.items():
+        if (launches[name]["privacy_conv"], launches[name]["dp_release"]) != (pc, dp):
+            raise AssertionError(f"audit {name} launches {launches[name]}, want {pc}, {dp}")
+    # ---- the forced attack steps from the start point, against the sigma-0
+    # row's observed release (the clipped features)
+    x0 = (0.5 + 0.01 * torch.randn(tuple(x.shape), generator=torch.Generator().manual_seed(0))
+          ).to(dev)
+    with torch.no_grad():
+        target = PrivacyGuard(DPConfig(clip_norm=1.0, noise_scale=0.0)).release_with_noise(
+            fwds["kernel"][0](x), None)
+    reset_counts()
+    forced = attack_gate(fwds, target, x0, AUDIT_STEPS)
+    if pc_ops.launches != 2 * AUDIT_STEPS:  # a step's kernel forward, and the check's
+        raise AssertionError(f"forced attack steps launched {pc_ops.launches}")
+    # ---- the sweeps' reconstructions and metrics against the session's
+    spread = sweep_spread(sweeps, recs)
+    limits = sweep_limits(x.numel(), sweeps["session"])
+    failed = [f"{name} row {r} {k}: {v} beyond {limits[name][k][r]}"
+              for name, e in spread.items() for k in ("l1", "mse", "psnr_db", "ncc")
+              for r, v in enumerate(e[k]) if not v <= limits[name][k][r]]
+    emit({"phase": "audit_covid", "card": smi, "model": COVID_CNN.name, "client": 0,
+          "state": "fedavg_covid", "rows": AUDIT_ROWS, "steps": AUDIT_STEPS,
+          "sigmas": list(AUDIT_SIGMAS), "clip_norm": 1.0, "launches": launches,
+          "forced_steps": forced, "sweep_vs_session": spread, "sweep_limits": limits,
+          "mse_vs_sigma": {name: [{k: r[k] for k in ("sigma", "mse", "psnr_db", "ncc")}
+                                  for r in rows] for name, rows in sweeps.items()},
+          "tf32": False, "cudnn_deterministic": True, **KERNEL_TOL})
+    if failed:
+        raise AssertionError("audit sweeps: " + "; ".join(failed))
+    torch.backends.cudnn.deterministic = False
+    return {"session": (launches["session"]["privacy_conv"], 0),
+            "kernel_release": (launches["kernel_release"]["privacy_conv"],
+                               launches["kernel_release"]["dp_release"]),
+            "x": x, "bank": bank}
+
+
+def fedavg_time(dev, smi: str, conv_inputs: dict, release_inputs: dict, audit: dict) -> dict:
+    """``fedavg_time``: FedAvg local steps per second with the kernels on
+    and off (one round of 3 x FEDAVG_STEPS local steps a fit, TIME_ROUNDS
+    fits a path in turns, session set-up excluded), the two kernels' device
+    time a local step from the profiler, attack steps per second with the
+    kernel forward on and off (ATTACK_TIME_STEPS steps a call, 3 calls in
+    turns), and both kernels' device ms at the slice's shapes against their
+    plain versions and bounds."""
+    shards = queue_shards()
+    sessions = {name: fedavg_session(on, dev) for name, on in (("kernel", True),
+                                                               ("plain", False))}
+    local = len(SHARES) * FEDAVG_STEPS
+
+    def fit(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sessions[name].fit(shards, epochs=1, steps_per_epoch=FEDAVG_STEPS)
+        torch.cuda.synchronize()
+        return local / (time.perf_counter() - t0)
+
+    for name in sessions:
+        fit(name)  # warm-up
+    rates = {"kernel": [], "plain": []}
+    for r in range(TIME_ROUNDS):
+        for name in (("kernel", "plain") if r % 2 else ("plain", "kernel")):
+            rates[name].append(fit(name))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fit("kernel")
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    per_step = {k: sum(e.self_device_time_total for e in dev_events if k in e.key)
+                / 1e3 / local for k in ("privacy_conv", "dp_release")}
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3 / local
+    x, bank = audit["x"], audit["bank"]
+    adapters = {on: cnn_adapter(dataclasses.replace(COVID_CNN, use_kernel=on))
+                for on in (True, False)}
+    with torch.no_grad():
+        target = adapters[False].client_forward(bank, x, None)
+    x0 = torch.full_like(x, 0.5)
+
+    def attack(on):
+        fwd = lambda z: adapters[on].client_forward(bank, z, None)  # noqa: E731
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        invert_features(fwd, target, x.shape, steps=ATTACK_TIME_STEPS, x0=x0)
+        torch.cuda.synchronize()
+        return ATTACK_TIME_STEPS / (time.perf_counter() - t0)
+
+    attack(True), attack(False)  # warm-up
+    attack_rates = {"kernel": [], "plain": []}
+    for r in range(3):
+        for on in ((True, False) if r % 2 else (False, True)):
+            attack_rates["kernel" if on else "plain"].append(attack(on))
+    emit({"phase": "fedavg_time", "card": smi, "tf32": False, "local_steps_per_fit": local,
+          "rounds": TIME_ROUNDS, "note": "wall, host clock, session set-up excluded",
+          **{f"{k}_local_steps_per_s": float(np.median(v)) for k, v in rates.items()},
+          **{f"{k}_local_steps_per_s_all": v for k, v in rates.items()},
+          "kernel_device_ms_per_local_step": per_step, "device_busy_ms_per_local_step": busy,
+          "attack_steps_per_call": ATTACK_TIME_STEPS, "attack_rows": AUDIT_ROWS,
+          **{f"{k}_attack_steps_per_s": float(np.median(v)) for k, v in attack_rates.items()},
+          **{f"{k}_attack_steps_per_s_all": v for k, v in attack_rates.items()},
+          "top": [{"name": e.key[:90], "count": e.count,
+                   "device_ms": e.self_device_time_total / 1e3}
+                  for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]]})
+    timed = {}
+    for case in ("fedavg_local", "audit"):
+        xc, w, b, nz = conv_inputs[case]
+        scale = CONV_CASES[case][-1]
+        k_ms, p_ms = paired_ms(lambda: pc_ops.privacy_conv_forward(xc, w, b, nz, scale),
+                               lambda: privacy_conv_ref(xc, w, b, nz, noise_scale=scale))
+        timed[f"privacy_conv/{case}"] = {
+            "case": f"privacy_conv/{case}", "ms": k_ms, "plain_ms": p_ms,
+            "plan": pc_ops.plan_for(xc, w, nz, scale), "library_ms": None,
+            **conv_work(*CONV_CASES[case])}
+        xr, nr = release_inputs[case]
+        s = AUDIT_RELEASE_SIGMA if case == "audit" else DPConfig().sigma
+        k_ms, p_ms = paired_ms(lambda: dp_ops.dp_release_forward(xr, nr, 1.0, s),
+                               lambda: dp_release_ref(xr, nr, clip_norm=1.0, sigma=s))
+        timed[f"dp_release/{case}"] = {
+            "case": f"dp_release/{case}", "shape": list(xr.shape), "sigma": s, "ms": k_ms,
+            "plain_ms": p_ms, "plan": dp_ops.plan_for(xr, nr, s), "library_ms": None,
+            **release_work(tuple(xr.shape), s)}
+    for t in timed.values():
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        emit({"phase": "time", "card": smi, **t})
+    return {"timed": timed, "device_ms_per_local_step": per_step}
 
 
 def covid_state(adapter, dev):
@@ -1433,14 +1931,14 @@ def main() -> None:
                                              "ReLU+pool+noise; cudnn_conv_only_ms times "
                                              "the conv alone",
                              "cudnn_conv_only_ms": conv_only,
-                             **conv_work(*CONV_CASES["covid"][:5])}
+                             **conv_work(*CONV_CASES["covid"])}
     xt_, wt_, bt_, nzt_ = conv_inputs["train_covid"]
     k_ms, p_ms = paired_ms(lambda: pc_ops.privacy_conv_forward(xt_, wt_, bt_, nzt_, scale),
                            lambda: privacy_conv_ref(xt_, wt_, bt_, nzt_, noise_scale=scale))
     timed["privacy_conv/train_covid"] = {
         "case": "privacy_conv/train_covid", "ms": k_ms, "plain_ms": p_ms,
         "plan": pc_ops.plan_for(xt_, wt_, nzt_, scale), "library_ms": None,
-        **conv_work(*CONV_CASES["train_covid"][:5])}
+        **conv_work(*CONV_CASES["train_covid"])}
     for case in ("covid", "mura", "train_mura"):
         xr, nr = release_inputs[case]
         rel_fns = (lambda: dp_ops.dp_release_forward(xr, nr, 1.0, sigma),
@@ -1477,6 +1975,12 @@ def main() -> None:
     queue_fault_launches = queue_faults(dev, smi)
     queue_thread_launches = queue_threaded(dev, smi)
     queue_timed = queue_time(dev, smi, banked_inputs, release_inputs["fleet_cycle"])
+
+    # ==== FedAvg and the inversion audit at COVID-CT width
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        fed = fedavg_covid(dev, smi, tmp, covid["evaluate"])
+    audit = audit_covid(dev, smi, fed["session"])
+    fed_timed = fedavg_time(dev, smi, conv_inputs, release_inputs, audit)
 
     # ==== the LM path: the LM kernels' entry points at the configs' widths
     attn = {}
@@ -1634,6 +2138,11 @@ def main() -> None:
                "queue_faults": queue_fault_launches["chaos"][name],
                "queue_threaded": queue_thread_launches[name]}
         for name in ("privacy_conv", "dp_release")}
+    # launches on the audit path: the session's sweep (the adapter's kernel,
+    # the plain guard) and the sweep with the release kernel
+    audit_launches = {
+        name: {"session": audit["session"][i], "kernel_release": audit["kernel_release"][i]}
+        for i, name in enumerate(("privacy_conv", "dp_release"))}
     queue_case = {"privacy_conv": ("privacy_conv_banked/fleet_covid", queue_timed["privacy_conv"]),
                   "dp_release": ("dp_release/fleet_cycle", queue_timed["dp_release"])}
     emit({"kernels": [
@@ -1649,7 +2158,14 @@ def main() -> None:
          "queue_case": queue_case[name][0] if name in queue_case else None,
          "queue_max_abs_err": errs[queue_case[name][0]] if name in queue_case else None,
          **({f"queue_{k}": queue_case[name][1][k]
-             for k in ("ms", "plain_ms", "bound_ms", "bound_by")} if name in queue_case else {})}
+             for k in ("ms", "plain_ms", "bound_ms", "bound_by")} if name in queue_case else {}),
+         "launches_fedavg": fed["launches"].get(name, 0),
+         "fedavg_device_ms_per_local_step": fed_timed["device_ms_per_local_step"].get(name),
+         "launches_audit": audit_launches.get(name, {"session": 0, "kernel_release": 0}),
+         **{f"{slice_}_{k}": (fed_timed["timed"][f"{name}/{case_}"][k]
+                              if f"{name}/{case_}" in fed_timed["timed"] else None)
+            for slice_, case_ in (("fedavg", "fedavg_local"), ("audit", "audit"))
+            for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by")}}
         for name, src, rep_line, case, t, counts in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

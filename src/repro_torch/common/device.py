@@ -1,8 +1,9 @@
-"""Device selection for the port's entry points."""
+"""Device selection and seeded generators for the port's entry points."""
 from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -16,3 +17,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+def seeded_generator(*entropy: int) -> torch.Generator:
+    """A CPU generator seeded from ``SeedSequence(entropy)``'s first word,
+    so one seed gives the same draws whatever device they move to."""
+    seq = np.random.SeedSequence(tuple(int(e) for e in entropy))
+    return torch.Generator().manual_seed(int(seq.generate_state(1, np.uint64)[0]))

@@ -1,8 +1,8 @@
 """Spatio-temporal split learning in the port, as ``repro.core``:
 
 - session:  ``SplitSession`` over the fused (scan / stepwise), looped
-            reference and queue (protocol-async / fused-queue) engines,
-            with one canonical state
+            reference, queue (protocol-async / fused-queue) and FedAvg
+            engines, with one canonical state
 - trainer:  the fused trainer, the looped reference, the queue engines'
             server step and bank replay, evaluation
 - adapters: the model adapters and their banked (per-client) views
@@ -11,8 +11,14 @@
 - protocol: the two-program client/server protocol and fleet production
 - faults:   deterministic fault injection (FaultPlan) for the queue
             engines, via ``fit(..., faults=)``
+- fedavg:   the federated-learning baseline the paper compares against
+
+The privacy subsystem (the guard, the accountant, the inversion audit)
+lives in ``repro_torch.privacy``; ``core.dp`` and ``core.inversion`` are
+deprecated shims over it.
 """
 from repro_torch.core.faults import ClientLoopError, FaultPlan
+from repro_torch.core.fedavg import train_fedavg
 from repro_torch.core.queue import FeatureBank, FeatureQueue
 from repro_torch.core.session import SplitSession, available_engines, register_engine
 from repro_torch.core.trainer import (

@@ -41,7 +41,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import resolve_device, seeded_generator
 from repro_torch.core.adapters import SplitAdapter, fleet_release_forward
 from repro_torch.core.faults import ClientLoopError, FaultRun
 from repro_torch.core.queue import FeatureQueue, FeatureSlice, as_tensor
@@ -95,10 +95,7 @@ class ReleaseNoise:
         self.client_id = client_id
         self.adapter, self.guard, self.device = adapter, guard, device
         self.noise_fn = noise_fn
-        self._gen = None
-        if noise_fn is None:
-            seq = np.random.SeedSequence((int(seed), int(step), int(client_id)))
-            self._gen = torch.Generator().manual_seed(int(seq.generate_state(1, np.uint64)[0]))
+        self._gen = None if noise_fn is not None else seeded_generator(seed, step, client_id)
 
     def draw(self, release: int, x_shape) -> Tuple[Optional[torch.Tensor],
                                                    Optional[torch.Tensor]]:

@@ -16,19 +16,22 @@ Engines register by name (``available_engines()``): ``auto``,
 ``fused-scan`` and ``fused-stepwise`` (the fused engine; ``auto`` is scan
 mode, the accelerator path of the reference's heuristic, since here both
 modes run one loop of steps), ``looped-ref`` (the seed's per-client loop),
-and the two queue engines, ``protocol-async`` (real client and server
+the two queue engines, ``protocol-async`` (real client and server
 objects behind a ``FeatureQueue``, one trunk update a pop) and
 ``fused-queue`` (the same arrivals banked, then replayed), which alone take
-``fit(..., faults=FaultPlan)``. Their ``opt`` leaf is the optimizer's
-moment tree and their ``step`` counts server steps, as in the reference, so
-their checkpoints cross with the JAX package's queue engines. The
-reference's other engines (``fedavg``, ``llm-split``), ``mesh=`` and
-``audit_privacy`` are not ported yet and raise a ``ValueError`` that says
-what is available.
+``fit(..., faults=FaultPlan)``, and ``fedavg``, the paper's FL baseline
+(``core.fedavg``). The queue engines' ``opt`` leaf is the optimizer's
+moment tree and their ``step`` counts server steps, FedAvg's ``opt`` is
+empty and its ``step`` counts rounds, as in the reference, so their
+checkpoints cross with the JAX package's. ``audit_privacy`` runs the
+inversion attack (``privacy.audit``) on a client's trained bank. The
+reference's ``llm-split`` engine and ``mesh=`` are not ported yet and raise
+a ``ValueError`` that says what is available.
 
 Randomness. The JAX engines fold an epoch key out of ``PRNGKey(seed)``;
 here every draw comes from a CPU ``torch.Generator`` seeded with the first
-64-bit word of ``numpy.random.SeedSequence(entropy)``: ``(seed,)`` for the
+64-bit word of ``numpy.random.SeedSequence(entropy)``
+(``common.device.seeded_generator``): ``(seed,)`` for the
 initial weights, ``(seed, e)`` for the plan of the session's e-th epoch
 (e = 1, 2, ...; ``make_sample_plan``). The draws move to the session's
 device, so one seed gives the same weights, batches and noise on the card
@@ -49,7 +52,9 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.io import load_checkpoint, save_checkpoint
-from repro_torch.common.device import resolve_device
+from repro_torch.common.device import resolve_device, seeded_generator
+from repro_torch.common.tree import tree_map
+from repro_torch.core import fedavg as fedavg_mod
 from repro_torch.core import protocol as protocol_mod
 from repro_torch.core.adapters import SplitAdapter
 from repro_torch.core.faults import ClientLoopError, FaultPlan
@@ -57,6 +62,7 @@ from repro_torch.core.queue import FeatureBank, FeatureQueue
 from repro_torch.core.trainer import (
     SamplePlan,
     SplitTrainConfig,
+    _client_banks_list,
     client_weights,
     device_put_shards,
     evaluate_per_client,
@@ -78,13 +84,14 @@ from repro_torch.privacy.accountant import (
     budget_report,
     per_client_report,
 )
+from repro_torch.privacy.audit import guard_noise_sweep
 from repro_torch.privacy.guard import PrivacyGuard
 
 Shards = Sequence[Tuple[np.ndarray, np.ndarray]]
 EvalFn = Optional[Callable[[Any], Dict[str, float]]]
 
 # the reference's engines that the port does not have yet
-NOT_PORTED = ("fedavg", "llm-split")
+NOT_PORTED = ("llm-split",)
 
 _ENGINES: Dict[str, Callable[..., Any]] = {}
 
@@ -98,12 +105,6 @@ def register_engine(name: str):
 
 def available_engines() -> List[str]:
     return sorted(_ENGINES)
-
-
-def seeded_generator(*entropy: int) -> torch.Generator:
-    """A CPU generator seeded from ``SeedSequence(entropy)``'s first word."""
-    seq = np.random.SeedSequence(entropy)
-    return torch.Generator().manual_seed(int(seq.generate_state(1, np.uint64)[0]))
 
 
 def _readout(ms: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -552,6 +553,93 @@ class FusedQueueEngine(ProtocolEngine):
                 consumer.step_count, d)
 
 
+# ------------------------------------------------------------------- fedavg
+@register_engine("fedavg")
+class FedAvgEngine:
+    """The paper's FL comparison behind the session surface, as the
+    reference's. ``epochs`` are FedAvg rounds, ``steps_per_epoch`` local
+    steps a round. The canonical ``client_banks`` are n identical copies of
+    the one global client block (FedAvg shares everything), so per-client
+    evaluation and the privacy metrics still apply.
+
+    The port's options beyond the reference's: ``device`` (``None``: the
+    card) and ``noise_fn``, ``(round, client, step, shape) -> guard noise``
+    in place of the seeded generators (``fedavg.fedavg_rounds``); it is read
+    at each ``run``."""
+
+    name = "fedavg"
+    identical_banks = True  # evaluate scores one bank and repeats the row
+
+    def __init__(self, adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, *,
+                 device=None, mesh=None, local_batch: int = 32, noise_fn=None):
+        if mesh is not None:
+            raise ValueError("fedavg does not support mesh=; use a fused engine")
+        if tc.mode != "detached":
+            raise ValueError(
+                "fedavg trains full local models; SplitTrainConfig.mode does "
+                "not apply — leave it at the default"
+            )
+        self.adapter, self.tc, self.opt = adapter, tc, opt
+        self.device = resolve_device(device)
+        self.local_batch = local_batch
+        self.noise_fn = noise_fn
+        self.guard = PrivacyGuard(tc.privacy)
+        self.step_metrics: List[Dict[str, np.ndarray]] = []  # round means only, in history
+        self._local_sgd = fedavg_mod.make_local_sgd(adapter, tc, opt)
+
+    def init(self, seed: int):
+        self._seed = int(seed)
+        self._rng = np.random.default_rng(self._seed)
+        return {"params": self.adapter.init(seeded_generator(seed), self.device), "round": 0,
+                "privacy": budget_init(self.device)}
+
+    def run(self, state, shards, *, epochs, steps_per_epoch, eval_fn=None):
+        wrapped = None
+        if eval_fn is not None:
+            def wrapped(gp):
+                return eval_fn(self.to_canonical(
+                    {"params": gp, "round": 0, "privacy": state["privacy"]}))
+        round_offset = int(state["round"])
+        # round 0 draws the session's first stream; a later offset (a second
+        # fit, or restore-then-fit) reseeds from (seed, round), so a restored
+        # session draws what a continued one would
+        rng = (self._rng if round_offset == 0
+               else np.random.default_rng((self._seed, round_offset)))
+        params, history = fedavg_mod.fedavg_rounds(
+            self.adapter, self.tc, self.opt, shards, state["params"],
+            rounds=epochs, local_steps=steps_per_epoch, local_batch=self.local_batch,
+            rng=rng, round_offset=round_offset, local_sgd=self._local_sgd,
+            eval_fn=wrapped, seed=self._seed, noise_fn=self.noise_fn,
+        )
+        for i, rec in enumerate(history):
+            rec.setdefault("epoch", i)
+            rec.setdefault("loss", rec["mean_local_loss"])
+        # the reference's count: one release a local step, not a client
+        privacy = (budget_advance(state["privacy"], self.tc.privacy, epochs * steps_per_epoch)
+                   if self.guard.enabled else state["privacy"])
+        return {"params": params, "round": round_offset + epochs, "privacy": privacy}, history
+
+    def to_canonical(self, state):
+        n = self.tc.n_clients
+        return {
+            "client_banks": tree_map(
+                lambda a: a.unsqueeze(0).expand((n,) + tuple(a.shape)).contiguous(),
+                state["params"]["client"]),
+            "server": state["params"]["server"],
+            "opt": {},  # FedAvg re-inits the client optimizers every round
+            "step": torch.tensor(int(state["round"]), dtype=torch.int32, device=self.device),
+            "privacy": state["privacy"],
+        }
+
+    def from_canonical(self, canonical):
+        return {
+            "params": {"client": tree_map(lambda a: a[0].clone(), canonical["client_banks"]),
+                       "server": canonical["server"]},
+            "round": int(canonical["step"]),
+            "privacy": canonical["privacy"],
+        }
+
+
 class SplitSession:
     """The unified engine surface.
 
@@ -644,6 +732,7 @@ class SplitSession:
         result = evaluate_per_client(
             self.adapter, self.state, x, y, batch=batch,
             weights=client_weights(self.config).numpy(),
+            identical_banks=getattr(self.engine, "identical_banks", False),
         )
         result["privacy"] = self.privacy_report()
         return result
@@ -673,9 +762,26 @@ class SplitSession:
         """The (ε, δ) budget spent so far (``privacy.accountant.budget_report``)."""
         return budget_report(self.config.privacy, self.state["privacy"], delta_prime)
 
-    def audit_privacy(self, *args, **kwargs):
-        raise ValueError("audit_privacy is not ported yet (privacy/audit.py); the port's "
-                         "session has fit, evaluate, privacy_report, save, restore and serve")
+    def audit_privacy(self, x_sample, *, sigmas: Sequence[float] = (0.0, 0.1, 1.0),
+                      steps: int = 120, seed: int = 0, client: int = 0,
+                      noise_fn=None, x0=None) -> List[Dict[str, float]]:
+        """Inversion-attack audit of client ``client``'s trained privacy
+        layer (the CNN case studies and the cholesterol MLP alike): for each
+        guard σ the attack reconstructs ``x_sample`` from the released
+        features through the noise-free client forward and reports
+        MSE/PSNR/NCC (``privacy.audit.guard_noise_sweep``, with the
+        session's feature clip ``config.privacy.clip_norm`` where one is
+        set). ``noise_fn`` and ``x0`` feed the sweep's randomness, as there."""
+        bank = _client_banks_list(self.state["client_banks"])[client]
+
+        def fwd(z):
+            return self.adapter.client_forward(bank, z, None)
+
+        clip = self.config.privacy.clip_norm if self.config.privacy else None
+        return guard_noise_sweep(
+            fwd, torch.as_tensor(x_sample, device=self.device), sigmas=sigmas,
+            clip_norm=clip, steps=steps, seed=seed, noise_fn=noise_fn, x0=x0,
+        )
 
     def save(self, directory: str, metadata: Optional[dict] = None) -> str:
         """Checkpoint the canonical state (``checkpoint/io``), with the

@@ -8,9 +8,14 @@ def bce_with_logits(logits, labels):
     """Binary cross-entropy. logits [B] or [B,1]; labels float {0,1}."""
     logits = logits.reshape(labels.shape).float()
     labels = labels.float()
+    # the reference's gradients at a logit of exactly 0 (a row whose hidden
+    # units are all dead, through a bias at its zero init): jnp.maximum
+    # splits the tie (0.5) and jnp.abs has slope 1 there, where torch.clamp
+    # passes 1 and torch.abs 0
+    zero = torch.zeros_like(logits)
     return torch.mean(
-        torch.clamp(logits, min=0) - logits * labels
-        + torch.log1p(torch.exp(-torch.abs(logits)))
+        torch.maximum(logits, zero) - logits * labels
+        + torch.log1p(torch.exp(-torch.where(logits >= 0, logits, -logits)))
     )
 
 

@@ -102,6 +102,16 @@ def quantize_ste(x: torch.Tensor, max_abs: float, bits: int) -> torch.Tensor:
     return x + (q - x).detach()
 
 
+def dp_release(noise: torch.Tensor, features: torch.Tensor, dp: DPConfig) -> torch.Tensor:
+    """Clip + Gaussian-mechanism noise, the reference's legacy signature
+    (kept for the ``core.dp`` shim; new code applies a ``PrivacyGuard``)
+    with standard-normal ``noise`` of the features' shape in the place of
+    the key: ``clip(features) + sigma * noise`` in float32, back in the
+    features' dtype."""
+    clipped = clip_per_sample(features, dp.clip_norm)
+    return (clipped.float() + dp.sigma * noise.float()).to(features.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class PrivacyGuard:
     """Release policy at the cut: clip → noise → quantize. ``dp=None`` is

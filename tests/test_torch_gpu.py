@@ -434,3 +434,75 @@ def test_queue_engine_fleet_launches_and_bits(cuda, engine):
     assert f.engine.losses == p.engine.losses
     for a, b in zip(tree_leaves(f.state), tree_leaves(p.state)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sigma", [0.0, None])
+def test_fedavg_local_step_kernels_against_plain(cuda, sigma):
+    """One FedAvg local step of the full-width COVID-CT CNN (a hospital's
+    batch of 32, the whole model, the guard at the cut) with the kernels on
+    against the same step with them off, on the same weights, batch and
+    noise: one ``privacy_conv`` launch and one ``dp_release`` call (k = 1),
+    and none in the backward. As test_e2e_covid_step_kernels_against_plain:
+    the loss within 1e-4, the gradient (AdamW's first moment after one step
+    is 0.1 x the clipped gradient) within 1e-3 in relative L2 norm.
+    ``sigma`` None is the calibrated σ (ε = 1)."""
+    from repro_torch.core import fedavg
+
+    noise = {} if sigma is None else {"noise_scale": sigma}
+    x, y = make_covid_ct(32, hw=64, seed=0)
+    guard_noise = torch.randn((32, 32, 32, 16), generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for on in (True, False):
+        adapter = cnn_adapter(dataclasses.replace(COVID_CNN, use_kernel=on))
+        tc = trainer.SplitTrainConfig(privacy=DPConfig(clip_norm=1.0, use_kernel=on, **noise))
+        opt = adamw(1e-3)
+        params = adapter.init(torch.Generator().manual_seed(0), cuda)
+        pc0, dp0 = pc_ops.launches, dp_ops.launches
+        _, state, loss = fedavg.make_local_sgd(adapter, tc, opt)(
+            params, opt.init(params), torch.from_numpy(x).to(cuda), torch.from_numpy(y).to(cuda),
+            torch.zeros((), dtype=torch.int32, device=cuda), guard_noise.to(cuda))
+        torch.cuda.synchronize()
+        runs[on] = (state, loss, pc_ops.launches - pc0, dp_ops.launches - dp0)
+    (k_state, k_loss, pc, dp), (p_state, p_loss, pc_plain, dp_plain) = runs[True], runs[False]
+    assert (pc, dp, pc_plain, dp_plain) == (1, 1, 0, 0)
+    torch.testing.assert_close(k_loss, p_loss, atol=1e-4, rtol=1e-4)
+    k_grad, p_grad = (torch.cat([a.reshape(-1) for a in tree_leaves(s["mu"])]) / 0.1
+                      for s in (k_state, p_state))
+    assert float((k_grad - p_grad).norm() / p_grad.norm()) <= 1e-3
+
+
+def test_attack_step_kernel_against_plain(cuda):
+    """One inversion-attack step (``privacy.audit.invert_features``) on four
+    full-width COVID-CT images through the client stage with
+    ``privacy_conv`` against the plain stage, from the same x and target:
+    one kernel launch (the backward recomputes through the plain version),
+    the loss within 1e-5, and the next x within 1e-5 except where the two
+    ``sign(g)`` differ, where an element parts by at most 2 x lr x 0.01
+    (1e-3) plus 1e-5; at most 0.1% of the elements may do so (a flip needs
+    a gradient within rounding of 0)."""
+    from repro_torch.privacy.audit import invert_features
+
+    x = torch.from_numpy(make_covid_ct(4, hw=64, seed=2)[0]).to(cuda)
+    x0 = (0.5 + 0.01 * torch.randn(tuple(x.shape),
+                                   generator=torch.Generator().manual_seed(0))).to(cuda)
+    params = cnn_adapter(COVID_CNN).init(torch.Generator().manual_seed(0), cuda)["client"]
+    fwds = {on: (lambda z, a=cnn_adapter(dataclasses.replace(COVID_CNN, use_kernel=on)):
+                 a.client_forward(params, z, None)) for on in (True, False)}
+    with torch.no_grad():
+        target = fwds[False](x) + 0.1
+    out = {}
+    for on, fwd in fwds.items():
+        pc0 = pc_ops.launches
+        nxt = invert_features(fwd, target, x.shape, steps=1, x0=x0)
+        with torch.no_grad():
+            loss = torch.mean(torch.square(fwd(x0) - target))
+        torch.cuda.synchronize()
+        out[on] = (nxt, loss, pc_ops.launches - pc0)
+    (k_x, k_loss, k_n), (p_x, p_loss, p_n) = out[True], out[False]
+    assert (k_n, p_n) == (2, 0)  # the step's forward and the loss above
+    torch.testing.assert_close(k_loss, p_loss, atol=1e-5, rtol=1e-5)
+    err = (k_x - p_x).abs()
+    parted = err > 1e-5 + 1e-5 * p_x.abs()
+    assert int(parted.sum()) <= x.numel() // 1000
+    assert float(err.max()) <= 2 * 0.05 * 0.01 + 1e-5
+    assert not torch.equal(k_x, x0)

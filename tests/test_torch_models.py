@@ -116,3 +116,21 @@ def test_adapter_losses_match_jax():
             assert got[k] == pytest.approx(want[k], rel=1e-5, abs=1e-6), k
         assert float(tad.loss(torch.from_numpy(o), torch.from_numpy(y))) == \
             pytest.approx(float(jad.loss(jnp.array(o), jnp.array(y))), rel=1e-5)
+
+
+def test_bce_gradient_at_a_zero_logit_matches_jax():
+    """A logit of exactly 0 (every hidden unit of the row dead, the output
+    bias at its zero init) gets the reference's gradient, (0.5 - y) + (-0.5)
+    a row over the batch, next to ordinary logits; values and gradients at
+    1e-6."""
+    from repro.metrics.losses import bce_with_logits as j_bce
+    from repro_torch.metrics.losses import bce_with_logits
+
+    out = np.array([[0.0], [1.5], [0.0], [-2.0], [16.4]], np.float32)
+    y = np.array([[1.0], [0.0], [0.0], [1.0], [1.0]], np.float32)
+    want_loss, want_grad = jax.value_and_grad(j_bce)(jnp.asarray(out), jnp.asarray(y))
+    o = torch.from_numpy(out).requires_grad_(True)
+    loss = bce_with_logits(o, torch.from_numpy(y))
+    (grad,) = torch.autograd.grad(loss, o)
+    assert float(loss) == pytest.approx(float(want_loss), rel=1e-6)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(want_grad), atol=1e-6, rtol=1e-6)

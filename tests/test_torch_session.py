@@ -190,12 +190,15 @@ def test_unported_paths_raise():
     # faults= is rejected by a non-queue engine, with the reference's message
     with pytest.raises(ValueError, match="does not support faults"):
         s.fit(shards, epochs=1, steps_per_epoch=1, faults=object())
-    with pytest.raises(ValueError, match="audit_privacy"):
-        s.audit_privacy(xt)
+    # audit_privacy is ported: one row per sigma
+    rows = s.audit_privacy(xt[:1], sigmas=(0.0, 2.0), steps=2)
+    assert [r["sigma"] for r in rows] == [0.0, 2.0]
+    assert all(r.keys() == {"sigma", "mse", "psnr_db", "ncc"} for r in rows)
     with pytest.raises(ValueError, match="steps_per_epoch"):
         s.fit(shards, epochs=1, steps_per_epoch=0)
-    assert available_engines() == ["auto", "fused-queue", "fused-scan", "fused-stepwise",
-                                   "looped-ref", "protocol-async"]
+    assert NOT_PORTED == ("llm-split",)
+    assert available_engines() == ["auto", "fedavg", "fused-queue", "fused-scan",
+                                   "fused-stepwise", "looped-ref", "protocol-async"]
 
 
 def test_readme_port_quickstart_runs():
