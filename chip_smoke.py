@@ -84,9 +84,28 @@ hubert-xlarge bidirectional with a ragged S, falcon-mamba-7b's scan), holds
 each output against its plain version on the card and small float32 and
 bfloat16 cases against the CPU, and times the attention cases (the bfloat16
 ones beside SDPA) and the scan, each tile or lane choice of a kernel against
-the one it beat. It prints one JSON object per phase and a ``kernels`` line
+the one it beat.
+
+Then it drives the LM workload at llama3.2-1b's published width (16
+layers, d 2048, 32 heads over 8 kv heads, vocab 128,256), float32: the
+decode driver ``launch.serve.prefill_and_decode`` at temperature 0 with
+batch 4, prompt 64 and 32 tokens, twice (bit-equal streams), its
+teacher-forced replay against the CPU's (``lm_decode``); LM split learning
+through ``SplitSession(engine="llm-split")`` by three hospitals, one
+512-token window each a step, the clipped guard through ``dp_release`` at
+the ``[3, 512, 2048]`` cut (one call a step, 6 in 2 x 3 steps; the budget
+at 6), ``evaluate``, a save/restore that continues bit for bit
+(``lm_train``, ``lm_restore``), every step of a 6-step plan retaken from
+one state by the plain release on the card at the calibrated sigma and at
+sigma 0 and one step by the CPU (``lm_forced``); the train steps per
+second with the kernel on and off, the decode's tokens per second and
+``dp_release`` at the LM cut (``lm_time``); and one e2e step, gradients
+into the banks through the release's plain backward (``lm_train_e2e``).
+Each LM phase prints the card's peak memory.
+
+It prints one JSON object per phase and a ``kernels`` line
 with every ported kernel (with its launches on the serving, training,
-queue, FedAvg and audit paths). The last line is ``{"ok": true, "device": ...}``.
+queue, FedAvg, audit and LM paths). The last line is ``{"ok": true, "device": ...}``.
 
 Any failed phase raises and the script exits non-zero; so does a machine
 without a CUDA card. The weights are random, drawn from seed 0. TF32 is off
@@ -96,6 +115,7 @@ Checkpoints go to a temporary directory under ``build/``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -113,6 +133,7 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
+from repro_torch.common.device import seeded_generator  # noqa: E402
 from repro_torch.common.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs import CHOLESTEROL_MLP, COVID_CNN, MURA_VGG19, get_config  # noqa: E402
 from repro_torch.core import (  # noqa: E402
@@ -123,6 +144,7 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core import fedavg as fedavg_mod  # noqa: E402
 from repro_torch.core.adapters import cnn_adapter, mlp_adapter  # noqa: E402
+from repro_torch.core.distributed import llm_adapter, llm_step_parts  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
     _plan_round_robin_cycle,
     make_fleet_release_fwd,
@@ -153,7 +175,11 @@ from repro_torch.kernels.privacy_conv.ref import (  # noqa: E402
 )
 from repro_torch.kernels.selective_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref  # noqa: E402
-from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.train import lm_shards  # noqa: E402
+from repro_torch.models import model as model_lib  # noqa: E402
+from repro_torch.models.transformer import ModelOptions  # noqa: E402
+from repro_torch.optim import adamw, linear_warmup_cosine  # noqa: E402
 from repro_torch.privacy import DPConfig, PrivacyGuard, composed_epsilon  # noqa: E402
 from repro_torch.privacy import audit as audit_mod  # noqa: E402
 from repro_torch.privacy.audit import guard_noise_sweep, invert_features  # noqa: E402
@@ -270,6 +296,30 @@ AUDIT_CARD_L1 = 1e-6
 # H100 80GB HBM3 at 700 W: L1 15.954905, MSE 4.6744943e-5, PSNR
 # 2.9840470e-3 dB, NCC 6.5067783e-3), times 3, rounded up.
 AUDIT_CPU_SPREAD = {"l1": 48.0, "mse": 1.5e-4, "psnr_db": 9e-3, "ncc": 2e-2}
+# the LM workload (lm_decode, lm_train, lm_time) at llama3.2-1b's published
+# width (16 layers, d 2048, 32 heads over 8 kv heads, hd 64, d_ff 8192,
+# vocab 128,256, rope theta 5e5), float32: decode with the settings of
+# examples/serve_decode.py (batch 4, prompt 64, gen 32); training by three
+# hospitals (0.7/0.2/0.1 of launch/train.py's corpus shards), one 512-token
+# window each a step (server batch 3), 2 epochs x 3 steps, AdamW with
+# launch/train.py's schedule, the clipped guard at epsilon 1 through
+# dp_release at the [3, 512, 2048] cut
+LM_CONFIG = "llama3.2-1b"
+LM_SEQ = 512
+LM_EPOCHS, LM_STEPS = 2, 3
+LM_DECODE = (4, 64, 32)  # batch, prompt, generated tokens
+LM_LR = 3e-4  # launch/train.py's default
+LM_TIME_ROUNDS = 3
+# the CPU retakes one training step at full width at this sequence length:
+# 128, since the card's 512 costs the host's 8 cores more than twice as
+# long (``tools/lm_smoke.py --cpu-seq 512`` reads it; PERF.md §6), a large
+# share of the time the LM phases may add; and the decode's steps for at
+# most this long (the first 16 positions at least)
+LM_CPU_SEQ = 128
+DECODE_CPU_BUDGET_S = 60.0
+# decode logits, card against CPU: float32 products of width 2048 to 8192
+# summed in another order, carried through 16 blocks and the tied head
+LM_LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def emit(obj) -> None:
@@ -422,8 +472,9 @@ def release_cases(sigma: float) -> dict:
     releases (63 rows a step: train_covid's cut, k = 1, and train_mura's,
     k = 3) with and without noise, F % 4 != 0 (scalar) and B = 1 on
     each side of the split, the queue's cycle, a FedAvg local step's
-    release (32 rows, k = 1) with and without noise, and the audit's (4
-    rows at the sweep's largest sigma)."""
+    release (32 rows, k = 1) with and without noise, the audit's (4 rows
+    at the sweep's largest sigma), and the LM cut of llama3.2-1b (3 rows
+    of 512 x 2048, k > 1) with and without noise."""
     return {"covid_sigma0": ((64, 32, 32, 16), 0.0), "covid": ((64, 32, 32, 16), sigma),
             "mura": ((8, 112, 112, 64), sigma), "mura_sigma0": ((8, 112, 112, 64), 0.0),
             "train_covid": ((63, 32, 32, 16), sigma),
@@ -436,7 +487,34 @@ def release_cases(sigma: float) -> dict:
             "fleet_cycle": ((210, 32, 32, 16), sigma),
             "fedavg_local": ((32, 32, 32, 16), sigma),
             "fedavg_local_sigma0": ((32, 32, 32, 16), 0.0),
-            "audit": ((4, 32, 32, 16), AUDIT_RELEASE_SIGMA)}
+            "audit": ((4, 32, 32, 16), AUDIT_RELEASE_SIGMA),
+            "lm_cut": ((3, LM_SEQ, 2048), sigma), "lm_cut_sigma0": ((3, LM_SEQ, 2048), 0.0)}
+
+
+def check_releases(gen, dev, cases: dict, errs: dict) -> tuple:
+    """``check`` for dp_release: each of ``cases`` (``release_cases``) on
+    inputs drawn from ``gen``, launched twice (identical bits) and held
+    against its plain version; the errors go into ``errs``. Returns the
+    inputs by case and the set of (k > 1, float4, noise) plans seen."""
+    inputs, seen = {}, set()
+    for case, (shape, s) in cases.items():
+        x = torch.randn(shape, generator=gen).to(dev)
+        nz = torch.randn(shape, generator=gen).to(dev)
+        inputs[case] = (x, nz)
+        plan = dp_ops.plan_for(x, nz, s)
+        seen.add((plan["blocks_per_row"] > 1, plan["vec4"], s > 0))
+        got = dp_ops.dp_release_forward(x, nz, 1.0, s)
+        again = dp_ops.dp_release_forward(x, nz, 1.0, s)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"dp_release/{case}: a relaunch gave other bits")
+        err = max_err(got, dp_release_ref(x, nz, clip_norm=1.0, sigma=s), **KERNEL_TOL,
+                      what=f"dp_release/{case}")
+        errs[f"dp_release/{case}"] = err
+        emit({"phase": "check", "case": f"dp_release/{case}", "shape": list(shape),
+              "features": int(np.prod(shape[1:])), "sigma": s, "plan": plan,
+              "bit_identical_relaunch": True, "max_abs_err": err, **KERNEL_TOL})
+    return inputs, seen
 
 
 def other_release_plan(plan: dict, rows: int, feats: int, sm_count: int) -> dict:
@@ -1725,6 +1803,437 @@ def fedavg_time(dev, smi: str, conv_inputs: dict, release_inputs: dict, audit: d
     return {"timed": timed, "device_ms_per_local_step": per_step}
 
 
+# ==== the LM workload: llama3.2-1b at its published width
+def lm_kernel_counts() -> dict:
+    """The LM kernels' launch counters (the LM model calls neither: the
+    reference's runs its own XLA attention, ``repro/models/attention.py:3-6``)."""
+    return {"flash_attention": fa_ops.launches, "selective_scan": ss_ops.launches}
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def free_card() -> None:
+    """Return the freed blocks of the allocator, before a phase's peak."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def lm_session(dev, mode="detached") -> SplitSession:
+    """llama3.2-1b split by launch/train.py's recipe: three hospitals, one
+    window a step each, adamw(linear_warmup_cosine(3e-4, 20, steps)), the
+    guard clipped at epsilon 1, the release through dp_release
+    (``lm_parts`` gives the step's other variants)."""
+    cfg = get_config(LM_CONFIG)
+    dp = DPConfig(epsilon=1.0, delta=1e-5, clip_norm=1.0, use_kernel=True)
+    tc = SplitTrainConfig(n_clients=3, data_shares=SHARES, server_batch=3, mode=mode, privacy=dp)
+    opt = adamw(linear_warmup_cosine(LM_LR, 20, LM_EPOCHS * LM_STEPS))
+    adapter = llm_adapter(cfg, ModelOptions(q_block=LM_SEQ, kv_block=LM_SEQ), torch.float32)
+    return SplitSession(adapter, tc, opt, engine="llm-split", seed=0, device=dev)
+
+
+def lm_parts(sess, on: bool, noise_scale=None):
+    """The flat-domain step of ``sess``'s config with the release through
+    the kernel (``on``) or its plain version, at ``noise_scale``."""
+    dp = dataclasses.replace(sess.config.privacy, use_kernel=on,
+                             noise_scale=(sess.config.privacy.noise_scale if noise_scale is None
+                                          else noise_scale))
+    a = sess.adapter
+    return llm_step_parts(a.cfg, a.opts, sess.opt, sess.config.n_clients,
+                          grad_clip=sess.config.grad_clip, privacy=dp,
+                          mode=sess.config.mode)
+
+
+def lm_plan(sess, shards, steps, seed, dev):
+    """``steps`` batches of the session's plan drawn from a CPU generator
+    seeded ``seed``: ``[(batch, guard_noise)]`` on ``dev``."""
+    data_x, data_y, lens = device_put_shards(shards, dev)
+    plan = make_sample_plan(sess.adapter, sess.config, steps)(
+        lens, (LM_SEQ,), torch.Generator().manual_seed(seed), dev)
+    rows = torch.arange(sess.config.n_clients, device=dev)[:, None]
+    return [({"tokens": data_x[rows, plan.idx[t]], "labels": data_y[rows, plan.idx[t]]},
+             None if plan.guard_noise is None else plan.guard_noise[t]) for t in range(steps)]
+
+
+def grad_gate(k, p, what: str) -> dict:
+    """Two ``(grad, metrics)`` of one step from one state: metrics and
+    gradient norms within TRAIN_TOL, the gradients within GRAD_TOL in
+    relative L2 norm."""
+    (kg, km), (pg, pm) = k, p
+    pg = pg.to(kg.device)
+    worst = 0.0
+    for key in km:
+        worst = max(worst, max_err(pm[key].cpu(), km[key].cpu(), **TRAIN_TOL,
+                                   what=f"{what} {key}"))
+    norms = torch.stack([torch.linalg.vector_norm(kg), torch.linalg.vector_norm(pg)]).cpu()
+    worst = max(worst, max_err(norms[1:], norms[:1], **TRAIN_TOL, what=f"{what} grad_norm"))
+    rel = float(torch.linalg.vector_norm(kg - pg) / norms[0])
+    if not rel <= GRAD_TOL:
+        raise AssertionError(f"{what}: gradient relative L2 error {rel}")
+    return {"metrics": worst, "grad_rel_l2": rel}
+
+
+def forced_logits(cfg, params, prompts, tokens, budget_s=None) -> torch.Tensor:
+    """The logits of every step of ``serve.prefill_and_decode``'s loop with
+    ``tokens`` fed in (teacher forcing): the prompt replayed, then token i
+    at position prompt + i. ``[B, prompt + gen, V]`` on the CPU; with
+    ``budget_s``, the steps until one ends past it."""
+    B, P = prompts.shape
+    toks = torch.cat([prompts, torch.as_tensor(tokens, device=prompts.device).to(prompts.dtype)],
+                     dim=1)
+    state = model_lib.init_decode_state(cfg, B, toks.shape[1], torch.float32, prompts.device)
+    out = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for t in range(toks.shape[1]):
+            logits, state = model_lib.serve_step(params, cfg, state, toks[:, t:t + 1], t)
+            out.append(logits[:, 0].cpu())
+            if budget_s is not None and time.perf_counter() - t0 > budget_s:
+                break
+    return torch.stack(out, dim=1)
+
+
+def lm_decode(dev, smi: str) -> dict:
+    """``lm_decode``: serve.prefill_and_decode at temperature 0 on the
+    card, twice (bit-equal token streams, each step's shape and dtype
+    checked), its teacher-forced replay equal to the free run's tokens, and
+    the same replay on the CPU: logits within LM_LOGIT_TOL at every
+    position it reached, greedy tokens equal wherever the card's top-2 gap
+    exceeds twice the tolerance. No kernel runs on this path."""
+    cfg = get_config(LM_CONFIG)
+    B, P, G = LM_DECODE
+    free_card()
+    params = model_lib.init_model(seeded_generator(0), cfg, torch.float32, dev)
+    prompts = serve.make_prompts(cfg, B, P, seed=0, device=dev)
+    reset_counts()
+    lm0 = lm_kernel_counts()
+    runs = [serve.prefill_and_decode(cfg, params, prompts, gen=G, temperature=0.0, seed=0,
+                                     check_steps=True) for _ in range(2)]
+    launches = {**{k: v["launches"] for k, v in kernel_counts().items()},
+                **{k: v - lm0[k] for k, v in lm_kernel_counts().items()}}
+    if any(launches.values()):
+        raise AssertionError(f"a kernel launched on the decode path: {launches}")
+    tokens = runs[0]["tokens"]
+    if tokens.shape != (B, G) or not np.array_equal(tokens, runs[1]["tokens"]):
+        raise AssertionError("greedy decode is not deterministic on the card")
+    if not ((0 <= tokens) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError("decoded tokens out of the vocabulary")
+    card = forced_logits(cfg, params, prompts, tokens)
+    if not np.array_equal(card[:, P - 1:P + G - 1].argmax(-1).numpy(), tokens):
+        raise AssertionError("the teacher-forced replay does not give the free run's tokens")
+    peak = peak_gib()
+    cpu_params = tree_map(lambda a: a.cpu(), params)
+    del params
+    t0 = time.perf_counter()
+    cpu = forced_logits(cfg, cpu_params, prompts.cpu(), tokens, budget_s=DECODE_CPU_BUDGET_S)
+    cpu_s = time.perf_counter() - t0
+    n = cpu.shape[1]
+    if n < min(16, P + G):
+        raise AssertionError(f"the CPU replay reached {n} positions in {cpu_s} s")
+    card = card[:, :n]
+    err = max_err(cpu, card, **LM_LOGIT_TOL, what="decode logits, CPU against the card")
+    top = card.topk(2, dim=-1).values
+    clear = (top[..., 0] - top[..., 1]) > 2 * (LM_LOGIT_TOL["atol"]
+                                               + LM_LOGIT_TOL["rtol"] * top[..., 0].abs())
+    agree = card.argmax(-1) == cpu.argmax(-1)
+    if not bool(agree[clear].all()):
+        raise AssertionError("greedy tokens differ from the CPU's at a clear top-2 gap")
+    timed = {k: runs[1][k] for k in ("tokens_per_s", "prefill_s", "decode_s")}
+    emit({"phase": "lm_decode", "card": smi, "config": LM_CONFIG, "batch": B, "prompt": P,
+          "gen": G, "dtype": "float32", "tf32": False, "tied_embeddings": cfg.tie_embeddings,
+          "bit_equal_runs": True, "steps_checked": P + G, "launches": launches,
+          "forced_replay_equals_tokens": True, "cpu_positions": n, "positions": P + G,
+          "cpu_s": cpu_s, "cpu_budget_s": DECODE_CPU_BUDGET_S,
+          "max_abs_err_vs_cpu": err, "near_ties": int((~clear).sum()),
+          "near_tie_disagreements": int((~agree & ~clear).sum()), **LM_LOGIT_TOL,
+          "peak_gib": peak, **timed, "first_tokens": tokens[0][:8].tolist()})
+    return {**timed, "launches": launches}
+
+
+def lm_forced(sess, plan, noise_scale, what: str) -> dict:
+    """Each step of ``plan`` retaken from one state by the kernel release
+    and the plain one on the card (``grad_gate``), the kernel step then
+    applied, along ``sess``'s native state."""
+    k_parts, p_parts = lm_parts(sess, True, noise_scale), lm_parts(sess, False, noise_scale)
+    native, unravel = sess.native_state, sess.engine._unravel
+    flat, banks, opt_state, step = (native["flat"], native["client_banks"], native["opt"],
+                                    native["step"])
+    worst = {"metrics": 0.0, "grad_rel_l2": 0.0}
+    calls0 = sum(dp_ops.plans.values())
+    for t, (batch, noise) in enumerate(plan):
+        if noise_scale == 0.0:
+            noise = None
+        k = k_parts.grad(flat, unravel, banks, batch, None, noise)
+        p = p_parts.grad(flat, unravel, banks, batch, None, noise)
+        w = grad_gate(k, p, f"{what} step {t}")
+        worst = {key: max(worst[key], w[key]) for key in worst}
+        del p
+        k_parts.apply(flat, opt_state, step, k[0])
+        step = step + 1
+    calls = sum(dp_ops.plans.values()) - calls0
+    if calls != len(plan):
+        raise AssertionError(f"{what}: {calls} dp_release calls in {len(plan)} steps")
+    return {**worst, "steps": len(plan), "dp_release_calls": calls}
+
+
+def lm_train(dev, smi: str, tmp: str) -> dict:
+    """``lm_train`` and its gates: SplitSession(engine="llm-split") trains
+    llama3.2-1b detached, 2 epochs x 3 steps (one dp_release call a step
+    over the [3, 512, 2048] cut, the budget at 6, finite losses), evaluates,
+    and restores bit for bit (``lm_restore``); every step of a 6-step plan
+    retaken from one state, kernel against the plain release on the card at
+    the calibrated sigma and at sigma 0, and one step against the CPU
+    (``lm_forced``). Returns the session and the path's counts."""
+    cfg = get_config(LM_CONFIG)
+    shards = lm_shards(cfg, SHARES, 1, LM_SEQ, 0)
+    n = LM_EPOCHS * LM_STEPS
+    free_card()
+    t0 = time.perf_counter()
+    sess = lm_session(dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_counts()
+    lm0 = lm_kernel_counts()
+    t0 = time.perf_counter()
+    sess.fit(shards, epochs=LM_EPOCHS, steps_per_epoch=LM_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ran = kernel_counts()
+    launches = {**{k: v["launches"] for k, v in ran.items()},
+                **{k: v - lm0[k] for k, v in lm_kernel_counts().items()}}
+    (release,) = ran["dp_release"]["plans"]
+    if (release["calls"] != n or launches != {"privacy_conv": 0, "flash_attention": 0,
+                                                "selective_scan": 0,
+                                                "dp_release": n * release["plan"]["launches"]}):
+        raise AssertionError(f"lm_train launches {ran}, want one dp_release call a step")
+    losses = step_losses(sess)
+    if len(losses) != n or not np.isfinite(losses).all():
+        raise AssertionError(f"lm_train per-step losses {losses}")
+    report = sess.privacy_report()
+    if report["releases"] != n:
+        raise AssertionError(f"budget counts {report['releases']} releases, want {n}")
+    peak_fit = peak_gib()
+    canonical = sess.state
+    server_params = sum(a.numel() for a in tree_leaves(canonical["server"]))
+    bank_params = sum(a.numel() for a in tree_leaves(canonical["client_banks"])) // 3
+    del canonical
+    path = sess.save(os.path.join(tmp, "lm"))
+    xe = shards[0][0][:6]
+    reset_counts()
+    ev = sess.evaluate(xe, xe, batch=3)
+    if kernel_counts()["dp_release"]["launches"]:
+        raise AssertionError("evaluate released through dp_release")
+    emit({"phase": "lm_train", "card": smi, "config": LM_CONFIG, "mode": "detached",
+          "engine": "llm-split", "dtype": "float32", "tf32": False, "clients": 3,
+          "seq": LM_SEQ, "rows_per_step": 3, "epochs": LM_EPOCHS, "steps_per_epoch": LM_STEPS,
+          "server_params": server_params, "bank_params": bank_params, "init_s": init_s,
+          "wall_s": wall, "step_losses": losses, "sigma": report["sigma"],
+          "launches": launches, "plans": ran,
+          "privacy": {k: report[k] for k in ("releases", "basic_epsilon", "advanced_epsilon")},
+          "evaluate": {k: ev[k] for k in ("loss", "accuracy")}, "evaluate_rows": len(xe),
+          "peak_gib": peak_fit})
+
+    # ---- lm_restore: the run continues one epoch; a session restored from
+    # its checkpoint continues the same epoch, bit for bit
+    sess.fit(shards, epochs=1, steps_per_epoch=LM_STEPS)
+    want = tree_map(lambda a: a.detach().cpu(), sess.state)
+    want_losses = step_losses(sess)
+    del sess
+    free_card()
+    t0 = time.perf_counter()
+    sess = lm_session(dev)
+    manifest = sess.restore(path)
+    restore_s = time.perf_counter() - t0
+    sess.fit(shards, epochs=1, steps_per_epoch=LM_STEPS)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(sess.state),
+                                                        tree_leaves(want)))
+    if not same or step_losses(sess) != want_losses:
+        raise AssertionError("the restored LM run differs")
+    if manifest["metadata"]["epochs_done"] != LM_EPOCHS:
+        raise AssertionError(f"restored epoch count {manifest['metadata']['epochs_done']}")
+    del want
+    emit({"phase": "lm_restore", "bit_identical": True, "step_losses": want_losses,
+          "checkpoint_gib": os.path.getsize(path) / 2 ** 30, "restore_s": restore_s,
+          "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
+          "peak_gib": peak_gib()})
+
+    # ---- lm_forced: each step retaken from one state, kernel against plain
+    free_card()
+    plan = lm_plan(sess, shards, n, 5, dev)
+    forced = {"calibrated": lm_forced(sess, plan, None, "lm_forced"),
+              "sigma0": lm_forced(sess, plan, 0.0, "lm_forced sigma 0")}
+    forced["peak_gib"] = peak_gib()
+    # one step against the CPU at full width (the first LM_CPU_SEQ tokens)
+    batch, noise = plan[0]
+    batch = {k: v[..., :LM_CPU_SEQ] for k, v in batch.items()}
+    noise = noise[:, :, :LM_CPU_SEQ].contiguous()
+    native, unravel = sess.native_state, sess.engine._unravel
+    k = lm_parts(sess, True).grad(native["flat"], unravel, native["client_banks"], batch, None,
+                                  noise)
+    k = (k[0].cpu(), {key: v.cpu() for key, v in k[1].items()})
+    t0 = time.perf_counter()
+    cpu = lm_parts(sess, False).grad(native["flat"].cpu(), unravel,
+                                      tree_map(lambda a: a.cpu(), native["client_banks"]),
+                                      {key: v.cpu() for key, v in batch.items()}, None,
+                                      noise.cpu())
+    forced["cpu"] = {**grad_gate(k, cpu, "lm_forced cpu"), "seq": LM_CPU_SEQ,
+                     "cpu_s": time.perf_counter() - t0}
+    emit({"phase": "lm_forced", "sigma": sess.guard.sigma, "tf32": False,
+          "grad_tol": GRAD_TOL, **TRAIN_TOL, **forced})
+    return {"session": sess, "shards": shards, "launches": launches,
+            "calls": release["calls"], "plan": release["plan"], "forced": forced}
+
+
+def lm_e2e(dev, smi: str, shards) -> None:
+    """``lm_train_e2e``: per-client banks trained e2e; one step's gradient
+    (into the banks through dp_release's plain backward) with the kernel
+    release against the plain one on the card, from one state; then one
+    step of the session, one dp_release call."""
+    free_card()
+    sess = lm_session(dev, mode="e2e")
+    (batch, noise), = lm_plan(sess, shards, 1, 6, dev)
+    native, unravel = sess.native_state, sess.engine._unravel
+    calls0 = sum(dp_ops.plans.values())
+    k = lm_parts(sess, True).grad(native["flat"], unravel, None, batch, None, noise)
+    kernel_calls = sum(dp_ops.plans.values()) - calls0
+    gate = grad_gate(k, lm_parts(sess, False).grad(native["flat"], unravel, None, batch, None,
+                                                   noise), "lm e2e")
+    del k
+    peak_gate = peak_gib()
+    free_card()
+    reset_counts()
+    sess.fit(shards, epochs=1, steps_per_epoch=1)
+    torch.cuda.synchronize()
+    calls = sum(dp_ops.plans.values())
+    losses = step_losses(sess)
+    if kernel_calls != 1 or calls != 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"e2e: {kernel_calls} and {calls} dp_release calls, loss {losses}")
+    trainable = sess.native_state["flat"].numel()
+    emit({"phase": "lm_train_e2e", "card": smi, "config": LM_CONFIG, "mode": "e2e",
+          "trainable_params": trainable, "gate": gate, "grad_tol": GRAD_TOL, **TRAIN_TOL,
+          "dp_release_calls": calls, "step_loss": losses[0], "peak_gib_gate": peak_gate,
+          "peak_gib_step": peak_gib()})
+
+
+def lm_time(dev, smi: str, sess, shards, decode: dict, release_inputs: dict) -> dict:
+    """``lm_time``: the end-to-end training rate, steps (and tokens) per
+    second of ``sess.fit`` epochs of LM_STEPS (each draws its plan and guard
+    noise on the CPU and moves them, as a user's fit does); the kernel
+    against the plain release, the step's parts alone along the session's
+    state with the plan drawn beforehand, epochs in turns; the device's busy
+    share and top kernels over one kernel epoch of the parts; decode
+    tokens/s and prefill s from lm_decode's second run; dp_release at the LM
+    cut against its plain version, the plan it beat and its bound."""
+    fit_rates = []
+    for _ in range(LM_TIME_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.fit(shards, epochs=1, steps_per_epoch=LM_STEPS)
+        torch.cuda.synchronize()
+        fit_rates.append(LM_STEPS / (time.perf_counter() - t0))
+    plan = lm_plan(sess, shards, LM_STEPS, 7, dev)
+    native, unravel = sess.native_state, sess.engine._unravel
+    parts = {"kernel": lm_parts(sess, True), "plain": lm_parts(sess, False)}
+
+    def epoch(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch, noise in plan:
+            g, _ = parts[name].grad(native["flat"], unravel, native["client_banks"], batch,
+                                    None, noise)
+            parts[name].apply(native["flat"], native["opt"], native["step"], g)
+            del g
+        torch.cuda.synchronize()
+        return LM_STEPS / (time.perf_counter() - t0)
+
+    for name in parts:
+        epoch(name)  # warm-up
+    rates = {"kernel": [], "plain": []}
+    for r in range(LM_TIME_ROUNDS):
+        for name in (("kernel", "plain") if r % 2 else ("plain", "kernel")):
+            rates[name].append(epoch(name))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch("kernel")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3
+    release_ms = sum(e.self_device_time_total for e in dev_events if "dp_release" in e.key) / 1e3
+    tokens = 3 * LM_SEQ
+    emit({"phase": "lm_time", "card": smi, "tf32": False, "config": LM_CONFIG,
+          "steps_per_epoch": LM_STEPS, "rounds": LM_TIME_ROUNDS, "tokens_per_step": tokens,
+          "fit_steps_per_s": float(np.median(fit_rates)),
+          "fit_tokens_per_s": float(np.median(fit_rates)) * tokens,
+          "fit_steps_per_s_all": fit_rates,
+          **{f"{k}_steps_per_s": float(np.median(v)) for k, v in rates.items()},
+          **{f"{k}_tokens_per_s": float(np.median(v)) * tokens for k, v in rates.items()},
+          **{f"{k}_steps_per_s_all": v for k, v in rates.items()},
+          "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
+          "device_busy_share": busy / wall_ms,
+          "dp_release_device_ms_per_step": release_ms / LM_STEPS,
+          "top": [{"name": e.key[:90], "count": e.count,
+                   "device_ms": e.self_device_time_total / 1e3}
+                  for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]],
+          "decode_tokens_per_s": decode["tokens_per_s"], "decode_s": decode["decode_s"],
+          "prefill_s": decode["prefill_s"], "decode_batch": LM_DECODE[0]})
+    x, nz = release_inputs["lm_cut"]
+    sigma = DPConfig().sigma
+    fns = (lambda: dp_ops.dp_release_forward(x, nz, 1.0, sigma),
+           lambda: dp_release_ref(x, nz, clip_norm=1.0, sigma=sigma))
+    k_ms, p_ms = paired_ms(*fns)
+    rel_plan = dp_ops.plan_for(x, nz, sigma)
+    other = other_release_plan(rel_plan, x.shape[0], int(np.prod(x.shape[1:])),
+                               torch.cuda.get_device_properties(dev).multi_processor_count)
+    other_ms = paired_ms(fns[0], lambda: dp_ops._launch(x, nz, 1.0, sigma, other["plan"]))[1]
+    work = release_work(tuple(x.shape), sigma)
+    # the kernel reads x twice where it splits a row (partial sums, then the
+    # release): the bound of the bytes it moves, beside the function's
+    second = bound(work["bytes"] + (4 * x.numel() if rel_plan["blocks_per_row"] > 1 else 0),
+                   work["flops"])
+    t = {"case": "dp_release/lm_cut", "shape": list(x.shape), "sigma": sigma, "ms": k_ms,
+         "plain_ms": p_ms, "plan": rel_plan, "other_plan": {**other, "ms": other_ms},
+         "library_ms": None, **work, "bound_share": work["bound_ms"] / k_ms,
+         "bound_ms_second_read": second["bound_ms"],
+         "bound_share_second_read": second["bound_ms"] / k_ms}
+    emit({"phase": "time", "card": smi, **t})
+    return t
+
+
+def lm_phases(dev, smi: str, release_inputs: dict, tmp: str) -> dict:
+    """The LM workload at llama3.2-1b's width, in order: ``lm_decode``,
+    ``lm_train`` (with ``lm_restore`` and ``lm_forced``; its checkpoint
+    under ``tmp``), ``lm_time`` (the LM cut's release timed on
+    ``release_inputs["lm_cut"]``) and ``lm_train_e2e``, then each phase's
+    wall seconds (``lm_wall``). Returns decode's and lm_train's results and
+    lm_time's timing row."""
+    wall = {}
+    t0 = time.perf_counter()
+    decode = lm_decode(dev, smi)
+    wall["lm_decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm = lm_train(dev, smi, tmp)
+    wall["lm_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    timed = lm_time(dev, smi, lm.pop("session"), lm["shards"], decode, release_inputs)
+    wall["lm_time"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm_e2e(dev, smi, lm["shards"])
+    wall["lm_train_e2e"] = time.perf_counter() - t0
+    emit({"phase": "lm_wall", "card": smi, "phase_wall_s": wall})
+    return {"decode": decode, "train": lm, "timed": timed}
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them, printed."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    return smi
+
+
 def covid_state(adapter, dev):
     gen = torch.Generator().manual_seed(0)
     return {"client_banks": [adapter.init(gen, dev)["client"] for _ in SHARES],
@@ -1739,10 +2248,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
     # ---- device
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    smi = card_line()
     kind = torch.cuda.get_device_name(0)
     emit({"phase": "device", "nvidia_smi": smi, "name": kind,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -1782,25 +2288,7 @@ def main() -> None:
         raise AssertionError(f"privacy_conv variants checked {sorted(seen)}, want all four")
     banked_inputs = check_banked(gen, dev, errs)
     sigma = DPConfig().sigma
-    release_inputs = {}
-    seen = set()
-    for case, (shape, s) in release_cases(sigma).items():
-        x = torch.randn(shape, generator=gen).to(dev)
-        nz = torch.randn(shape, generator=gen).to(dev)
-        release_inputs[case] = (x, nz)
-        plan = dp_ops.plan_for(x, nz, s)
-        seen.add((plan["blocks_per_row"] > 1, plan["vec4"], s > 0))
-        got = dp_ops.dp_release_forward(x, nz, 1.0, s)
-        again = dp_ops.dp_release_forward(x, nz, 1.0, s)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"dp_release/{case}: a relaunch gave other bits")
-        err = max_err(got, dp_release_ref(x, nz, clip_norm=1.0, sigma=s), **KERNEL_TOL,
-                      what=f"dp_release/{case}")
-        errs[f"dp_release/{case}"] = err
-        emit({"phase": "check", "case": f"dp_release/{case}", "shape": list(shape),
-              "features": int(np.prod(shape[1:])), "sigma": s, "plan": plan,
-              "bit_identical_relaunch": True, "max_abs_err": err, **KERNEL_TOL})
+    release_inputs, seen = check_releases(gen, dev, release_cases(sigma), errs)
     if seen != {(k, v, n) for k in (False, True) for v in (False, True) for n in (False, True)}:
         raise AssertionError(f"dp_release plans checked {sorted(seen)}, want k = 1 and k > 1, "
                              "float4 and scalar, each with and without noise")
@@ -2109,6 +2597,11 @@ def main() -> None:
         t["bound_share"] = t["bound_ms"] / t["ms"]
         emit({"phase": "time", "card": smi, **t})
 
+    # ==== the LM workload at llama3.2-1b's width: decode, then split training
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        lm_out = lm_phases(dev, smi, release_inputs, tmp)
+    decode, lm, lm_timed = lm_out["decode"], lm_out["train"], lm_out["timed"]
+
     # ---- kernels: one line for every ported kernel
     rows = [
         ("privacy_conv", "src/repro_torch/csrc/privacy_conv.cu",
@@ -2165,7 +2658,15 @@ def main() -> None:
          **{f"{slice_}_{k}": (fed_timed["timed"][f"{name}/{case_}"][k]
                               if f"{name}/{case_}" in fed_timed["timed"] else None)
             for slice_, case_ in (("fedavg", "fedavg_local"), ("audit", "audit"))
-            for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by")}}
+            for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by")},
+         # the LM workload: launches on the decode and the training path
+         # (lm_decode's two runs, lm_train's 2 x 3 steps), and the LM cut
+         "launches_lm": {"lm_decode": decode["launches"][name],
+                         "lm_train": lm["launches"][name]},
+         **({f"lm_{k}": lm_timed[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
+                                              "bound_ms_second_read")}
+            | {"lm_max_abs_err": errs["dp_release/lm_cut"], "lm_train_calls": lm["calls"]}
+            if name == "dp_release" else {})}
         for name, src, rep_line, case, t, counts in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -65,7 +65,7 @@ def _restore_like(like, flat: dict, device, read: set, prefix: str = ""):
         return None
     if tuple(arr.shape) != tuple(like.shape):
         raise ValueError(f"shape mismatch at {prefix}: {arr.shape} vs {tuple(like.shape)}")
-    return to_torch(arr, device).to(like.dtype)
+    return to_torch(arr, device, copy=False).to(like.dtype)  # arr is this load's own
 
 
 def load_checkpoint(path: str, device=None, like: Any = None) -> Tuple[Any, dict]:

@@ -43,10 +43,14 @@ def _is_bf16_bits(a: np.ndarray) -> bool:
                                      and dt.fields is None)
 
 
-def _array_to_tensor(a) -> torch.Tensor:
+def _array_to_tensor(a, copy: bool = True) -> torch.Tensor:
     """A copy of ``a`` (anything ``np.array`` takes) as a CPU tensor of the
-    same dtype; bfloat16 (:func:`_is_bf16_bits`) keeps its bits exactly."""
-    a = np.array(a)
+    same dtype; bfloat16 (:func:`_is_bf16_bits`) keeps its bits exactly.
+    ``copy=False`` shares a writable numpy array's memory (one the caller
+    owns, such as a checkpoint's freshly read leaf)."""
+    a = np.array(a) if copy else np.asarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
     if _is_bf16_bits(a):
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
@@ -61,17 +65,19 @@ def _tensor_to_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def to_torch(tree, device: Optional[Union[str, torch.device]] = None):
+def to_torch(tree, device: Optional[Union[str, torch.device]] = None, copy: bool = True):
     """Every leaf as a tensor on ``device`` (dtype kept); ``None`` means the
     card, as everywhere in the port (:func:`resolve_device`), so with no card
-    it raises. An array leaf is copied (JAX arrays are read-only buffers); a
-    tensor leaf is moved, not copied, when it is already there."""
+    it raises. An array leaf is copied (JAX arrays are read-only buffers),
+    unless ``copy=False`` and it is a writable numpy array, whose memory a
+    CPU tensor then shares; a tensor leaf is moved, not copied, when it is
+    already there."""
     dev = resolve_device(device)
 
     def leaf(a):
         if isinstance(a, torch.Tensor):
             return a.to(dev)
-        return _array_to_tensor(a).to(dev)
+        return _array_to_tensor(a, copy).to(dev)
 
     return tree_map(leaf, tree)
 

@@ -1,8 +1,8 @@
 """Spatio-temporal split learning in the port, as ``repro.core``:
 
 - session:  ``SplitSession`` over the fused (scan / stepwise), looped
-            reference, queue (protocol-async / fused-queue) and FedAvg
-            engines, with one canonical state
+            reference, queue (protocol-async / fused-queue), FedAvg and
+            ``llm-split`` engines, with one canonical state
 - trainer:  the fused trainer, the looped reference, the queue engines'
             server step and bank replay, evaluation
 - adapters: the model adapters and their banked (per-client) views
@@ -12,6 +12,8 @@
 - faults:   deterministic fault injection (FaultPlan) for the queue
             engines, via ``fit(..., faults=)``
 - fedavg:   the federated-learning baseline the paper compares against
+- distributed: multi-client split learning over the attention-only LM
+            configs (the ``llm-split`` engine's step)
 
 The privacy subsystem (the guard, the accountant, the inversion audit)
 lives in ``repro_torch.privacy``; ``core.dp`` and ``core.inversion`` are

@@ -23,10 +23,11 @@ objects behind a ``FeatureQueue``, one trunk update a pop) and
 (``core.fedavg``). The queue engines' ``opt`` leaf is the optimizer's
 moment tree and their ``step`` counts server steps, FedAvg's ``opt`` is
 empty and its ``step`` counts rounds, as in the reference, so their
-checkpoints cross with the JAX package's. ``audit_privacy`` runs the
-inversion attack (``privacy.audit``) on a client's trained bank. The
-reference's ``llm-split`` engine and ``mesh=`` are not ported yet and raise
-a ``ValueError`` that says what is available.
+checkpoints cross with the JAX package's, and ``llm-split``, the LM split
+workload (``core.distributed``) for the attention-only transformer
+families. ``audit_privacy`` runs the inversion attack (``privacy.audit``)
+on a client's trained bank. The reference's ``mesh=`` is not ported yet
+and raises a ``ValueError``.
 
 Randomness. The JAX engines fold an epoch key out of ``PRNGKey(seed)``;
 here every draw comes from a CPU ``torch.Generator`` seeded with the first
@@ -37,7 +38,8 @@ initial weights, ``(seed, e)`` for the plan of the session's e-th epoch
 device, so one seed gives the same weights, batches and noise on the card
 and on the CPU (the runs then part by float32 rounding, which AdamW
 amplifies), and ``restore`` resumes the epoch count, so the schedule
-continues instead of replaying.
+continues instead of replaying. ``SplitSession.state`` is a copy where the
+engine updates its state in place (``llm-split``).
 
     session = SplitSession(adapter, SplitTrainConfig(...), adamw(1e-3))
     session.fit(shards, epochs=30, steps_per_epoch=10)
@@ -53,10 +55,16 @@ import torch
 
 from repro_torch.checkpoint.io import load_checkpoint, save_checkpoint
 from repro_torch.common.device import resolve_device, seeded_generator
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import ravel, tree_map
 from repro_torch.core import fedavg as fedavg_mod
 from repro_torch.core import protocol as protocol_mod
 from repro_torch.core.adapters import SplitAdapter
+from repro_torch.core.distributed import (
+    LLMSplitAdapter,
+    init_llm_params,
+    llm_step_parts,
+    trainable_of,
+)
 from repro_torch.core.faults import ClientLoopError, FaultPlan
 from repro_torch.core.queue import FeatureBank, FeatureQueue
 from repro_torch.core.trainer import (
@@ -89,9 +97,6 @@ from repro_torch.privacy.guard import PrivacyGuard
 
 Shards = Sequence[Tuple[np.ndarray, np.ndarray]]
 EvalFn = Optional[Callable[[Any], Dict[str, float]]]
-
-# the reference's engines that the port does not have yet
-NOT_PORTED = ("llm-split",)
 
 _ENGINES: Dict[str, Callable[..., Any]] = {}
 
@@ -640,6 +645,123 @@ class FedAvgEngine:
         }
 
 
+# ---------------------------------------------------------------- llm-split
+@register_engine("llm-split")
+class LLMSplitEngine(_Engine):
+    """The LM split workload (``core.distributed``) behind the session
+    surface, as the reference's: per-client banks (embedding + privacy
+    block(s)), the server trunk with an UNTIED head. Shards are per-client
+    ``(windows, windows)`` pairs of ``[N, S]`` int32 token windows (labels
+    are the tokens; the loss shifts them). The plan is the fused engines'
+    (``make_sample_plan``: indices ``[T, C, b]``, then model and guard noise
+    of the features' shape ``[T, C, b, S, d]``, from ``SeedSequence((seed,
+    e))``), and the guard releases once a step over all ``C*b`` rows.
+
+    ``shared_bank=True`` keeps ONE bank in the native state (identically
+    initialized frozen banks are one bank in detached mode); the canonical
+    state broadcasts it to ``[n_clients, ...]`` and back. ``mode="e2e"``
+    trains per-client banks and rejects ``shared_bank``.
+
+    The native state holds the trainable part as one flat buffer and the
+    optimizer's moments as flat buffers (``llm_step_parts``), which the
+    steps update in place, as the reference donates its state: the
+    engine's canonical state is views of them, and ``SplitSession.state``
+    copies it (``updates_in_place``). The weights are drawn leaf by leaf
+    from a CPU generator seeded with ``SeedSequence((seed,))``'s first word
+    and moved to the engine's device, so one seed gives the same weights,
+    plans and noise on the card and on the CPU."""
+
+    name = "llm-split"
+    updates_in_place = True
+
+    def __init__(self, adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, *,
+                 device=None, shared_bank: bool = False):
+        if not isinstance(adapter, LLMSplitAdapter) or adapter.cfg is None:
+            raise ValueError(
+                "llm-split needs an adapter built by "
+                "repro_torch.core.distributed.llm_adapter(cfg, opts): it carries "
+                "the transformer config the engine's step reads")
+        if tc.mode not in ("detached", "e2e"):
+            raise ValueError(f"unknown mode {tc.mode!r}")
+        super().__init__(adapter, tc, opt, device)
+        self.shared_bank = shared_bank
+        # evaluate() scores one bank and repeats the row when it is shared
+        self.identical_banks = shared_bank
+        self.guard = PrivacyGuard(tc.privacy)
+        # raises for e2e with a shared bank
+        self.parts = llm_step_parts(adapter.cfg, adapter.opts, opt, tc.n_clients,
+                                    grad_clip=tc.grad_clip, privacy=tc.privacy,
+                                    shared_bank=shared_bank, mode=tc.mode)
+        self._unravel = None
+
+    def _native_state(self, banks, server, opt_state, step, privacy):
+        """The native state of a canonical one's parts; ``opt_state`` maps
+        each moment to its tree (``None``: fresh moments)."""
+        flat, self._unravel = ravel(trainable_of({"server": server, "client_banks": banks},
+                                                 self.parts.detached))
+        opt_flat = (self.opt.init(flat) if opt_state is None
+                    else {k: ravel(v)[0] for k, v in opt_state.items()})
+        return {"client_banks": banks if self.parts.detached else None, "flat": flat,
+                "opt": opt_flat, "step": step, "privacy": privacy}
+
+    def init(self, seed: int):
+        self._start(seed)
+        banks, server = init_llm_params(seeded_generator(seed), self.adapter.cfg, self.tc.n_clients,
+                                        self.adapter.dtype, self.shared_bank, self.device)
+        return self._native_state(banks, server, None,
+                                  torch.zeros((), dtype=torch.int32, device=self.device),
+                                  budget_init(self.device))
+
+    def run(self, state, shards, *, epochs, steps_per_epoch, eval_fn=None):
+        if len(shards) != self.tc.n_clients:
+            raise ValueError(f"{len(shards)} shards for n_clients={self.tc.n_clients}")
+        data_x, data_y, lens = device_put_shards(shards, self.device)
+        rows = torch.arange(self.tc.n_clients, device=self.device)[:, None]
+        banks, flat, opt_state = state["client_banks"], state["flat"], state["opt"]
+        history, self.step_metrics = [], []
+        for ep in range(epochs):
+            plan = self._next_plan(steps_per_epoch, lens, data_x.shape[2:])
+            step, priv = state["step"], state["privacy"]
+            ms = []
+            for t in range(steps_per_epoch):
+                batch = {"tokens": data_x[rows, plan.idx[t]],
+                         "labels": data_y[rows, plan.idx[t]]}
+                g, m = self.parts.grad(
+                    flat, self._unravel, banks, batch,
+                    None if plan.model_noise is None else plan.model_noise[t],
+                    None if plan.guard_noise is None else plan.guard_noise[t])
+                m["grad_norm"] = self.parts.apply(flat, opt_state, step, g)
+                del g
+                step = step + 1
+                if self.guard.enabled:
+                    priv = budget_advance(priv, self.tc.privacy)
+                ms.append(m)
+            state = {**state, "step": step, "privacy": priv}
+            self.step_metrics.append(_readout({k: torch.stack([m[k] for m in ms])
+                                               for k in ms[0]}))
+            history.append(_record(ep, self.step_metrics[-1], eval_fn,
+                                   None if eval_fn is None else self.to_canonical(state)))
+        return state, history
+
+    def to_canonical(self, state):
+        tr = self._unravel(state["flat"])
+        banks, server = ((state["client_banks"], tr) if self.parts.detached
+                         else (tr["client_banks"], tr["server"]))
+        if self.shared_bank:
+            n = self.tc.n_clients
+            banks = tree_map(lambda a: a[None].expand((n,) + tuple(a.shape)), banks)
+        return {"client_banks": banks, "server": server,
+                "opt": {k: self._unravel(v) for k, v in state["opt"].items()},
+                "step": state["step"], "privacy": state["privacy"]}
+
+    def from_canonical(self, canonical):
+        banks = canonical["client_banks"]
+        if self.shared_bank:
+            banks = tree_map(lambda a: a[0], banks)
+        return self._native_state(banks, canonical["server"], canonical["opt"],
+                                  canonical["step"], canonical["privacy"])
+
+
 class SplitSession:
     """The unified engine surface.
 
@@ -662,8 +784,8 @@ class SplitSession:
         if isinstance(engine, str):
             factory = _ENGINES.get(engine)
             if factory is None:
-                why = "is not ported yet" if engine in NOT_PORTED else "is unknown"
-                raise ValueError(f"engine {engine!r} {why}; available: {available_engines()}")
+                raise ValueError(f"engine {engine!r} is unknown; available: "
+                                 f"{available_engines()}")
             engine = factory(adapter, config, opt, device=self.device, **engine_options)
         elif engine_options:
             raise ValueError("engine options apply only when engine is a registry name; "
@@ -715,10 +837,21 @@ class SplitSession:
         take no ``faults=``."""
         return getattr(self.engine, "fault_stats", {})
 
+    def _canonical(self):
+        """The engine's canonical state, for reading at once: an engine that
+        ``updates_in_place`` gives views that its next fit changes."""
+        return self.engine.to_canonical(self._native)
+
     @property
     def state(self):
-        """The canonical state tree (see module docstring)."""
-        return self.engine.to_canonical(self._native)
+        """The canonical state tree (see module docstring): a copy where the
+        engine updates its state in place, so a later fit leaves it as it
+        was."""
+        canonical = self._canonical()
+        if getattr(self.engine, "updates_in_place", False):
+            canonical = tree_map(lambda a: a.clone(memory_format=torch.contiguous_format),
+                                 canonical)
+        return canonical
 
     @property
     def native_state(self):
@@ -730,7 +863,7 @@ class SplitSession:
         the share-weighted mean of every metric and the budget under
         ``"privacy"``. See ``trainer.evaluate_per_client``."""
         result = evaluate_per_client(
-            self.adapter, self.state, x, y, batch=batch,
+            self.adapter, self._canonical(), x, y, batch=batch,
             weights=client_weights(self.config).numpy(),
             identical_banks=getattr(self.engine, "identical_banks", False),
         )
@@ -760,7 +893,7 @@ class SplitSession:
 
     def privacy_report(self, delta_prime: float = 1e-6) -> Dict[str, Any]:
         """The (ε, δ) budget spent so far (``privacy.accountant.budget_report``)."""
-        return budget_report(self.config.privacy, self.state["privacy"], delta_prime)
+        return budget_report(self.config.privacy, self._canonical()["privacy"], delta_prime)
 
     def audit_privacy(self, x_sample, *, sigmas: Sequence[float] = (0.0, 0.1, 1.0),
                       steps: int = 120, seed: int = 0, client: int = 0,
@@ -772,7 +905,7 @@ class SplitSession:
         MSE/PSNR/NCC (``privacy.audit.guard_noise_sweep``, with the
         session's feature clip ``config.privacy.clip_norm`` where one is
         set). ``noise_fn`` and ``x0`` feed the sweep's randomness, as there."""
-        bank = _client_banks_list(self.state["client_banks"])[client]
+        bank = _client_banks_list(self._canonical()["client_banks"])[client]
 
         def fwd(z):
             return self.adapter.client_forward(bank, z, None)
@@ -786,7 +919,7 @@ class SplitSession:
     def save(self, directory: str, metadata: Optional[dict] = None) -> str:
         """Checkpoint the canonical state (``checkpoint/io``), with the
         engine's epoch count so that ``restore`` continues the schedule."""
-        state = self.state
+        state = self._canonical()
         meta = {"engine": self.engine.name, "adapter": self.adapter.name,
                 "n_clients": self.config.n_clients,
                 "privacy_releases": int(state["privacy"]["releases"]),
@@ -801,7 +934,7 @@ class SplitSession:
         template: keys, shapes and dtypes) and adopt it, with the epoch
         count it was saved at; returns the manifest. A checkpoint of the JAX
         package loads the same way."""
-        state, manifest = load_checkpoint(path, self.device, like=self.state)
+        state, manifest = load_checkpoint(path, self.device, like=self._canonical())
         self._native = self.engine.from_canonical(state)
         epochs_done = manifest.get("metadata", {}).get("epochs_done")
         if epochs_done is not None and hasattr(self.engine, "_epochs_done"):

@@ -57,15 +57,19 @@ def invert_features(
     """Gradient-descent inversion: argmin_x ||client_forward(x) - f*||^2,
     from ``x0`` (else the seeded start point), one step
     ``x <- clip(x - lr * 0.01 * sign(g) - lr * g, 0, 1)`` at a time, with
-    ``g`` the gradient of the feature MSE in x. Runs on the features'
-    device."""
+    ``g`` the gradient of the feature MSE in x (zero where the forward is
+    detached from x). Runs on the features' device."""
     target = target_features.detach()
     x = _start_point(x_shape, seed, x0, target.device)
     for _ in range(steps):
         z = x.detach().requires_grad_(True)
         with torch.enable_grad():
             loss = torch.mean(torch.square(client_forward(z) - target))
-            (g,) = torch.autograd.grad(loss, z)
+            g = torch.autograd.grad(loss, z, allow_unused=True)[0] if loss.requires_grad else None
+        if g is None:
+            # a forward detached from x (the LM cut's detach, the reference's
+            # stop_gradient) has a zero gradient in x, as jax.grad gives
+            g = torch.zeros_like(z)
         with torch.no_grad():
             x = torch.clamp(z - lr * torch.sign(g) * 0.01 - lr * g, 0.0, 1.0)
     return x.detach()

@@ -100,13 +100,15 @@ def test_privacy_conv_other_plans_and_refusals(cuda):
 
 # every plan release_plan chooses, (k > 1, float4), each with and without
 # noise: the serving cut (k 1), the MURA cut (k 17), F % 4 != 0 split (k 3)
-# and not, B = 1 split (k 49) and not
+# and not, B = 1 split (k 49) and not; and the LM cut of llama3.2-1b at
+# seq 512 (3 rows of 1 Mi features, k 44)
 @pytest.mark.parametrize("shape,clip,sigma,split,vec4", [
     ((64, 32, 32, 16), 1.0, 0.0, False, True), ((64, 32, 32, 16), 1.0, 9.7, False, True),
     ((8, 112, 112, 64), 1.0, 9.7, True, True), ((8, 112, 112, 64), 1.0, 0.0, True, True),
     ((2, 50001), 1.0, 9.7, True, False), ((2, 50001), 1e4, 0.0, True, False),
     ((5, 7), 1e4, 0.5, False, False), ((5, 7, 5), 1.0, 0.0, False, False),
-    ((1, 112, 112, 64), 1.0, 9.7, True, True), ((1, 100), 1.0, 9.7, False, True)])
+    ((1, 112, 112, 64), 1.0, 9.7, True, True), ((1, 100), 1.0, 9.7, False, True),
+    ((3, 512, 2048), 1.0, 9.7, True, True), ((3, 512, 2048), 1.0, 0.0, True, True)])
 def test_dp_release_kernel(cuda, shape, clip, sigma, split, vec4):
     g = torch.Generator().manual_seed(1)
     x, nz = _randn(g, *shape), _randn(g, *shape)
@@ -506,3 +508,61 @@ def test_attack_step_kernel_against_plain(cuda):
     assert int(parted.sum()) <= x.numel() // 1000
     assert float(err.max()) <= 2 * 0.05 * 0.01 + 1e-5
     assert not torch.equal(k_x, x0)
+
+
+def test_llm_split_detached_step_kernel_against_plain(cuda):
+    """One detached ``llm-split`` step at llama3.2-1b's width (d 2048,
+    vocab 128,256; two layers, so the trunk is one block and the untied
+    head), three clients of one 512-token window, the clipped guard at the
+    calibrated σ through ``dp_release`` (one call over the ``[3, 512,
+    2048]`` cut) against the plain guard, from one state and noise: the
+    loss within 1e-4 and the gradient within 1e-3 in relative L2 norm, as
+    chip_smoke.py's gate."""
+    import dataclasses as dc
+
+    from repro_torch.common.tree import ravel
+    from repro_torch.configs import get_config
+    from repro_torch.core import distributed as td
+    from repro_torch.models.transformer import ModelOptions
+
+    cfg = dc.replace(get_config("llama3.2-1b"), n_layers=2)
+    opts = ModelOptions(q_block=512, kv_block=512)
+    banks, server = td.init_llm_params(torch.Generator(device=cuda).manual_seed(0), cfg, 3,
+                                       torch.float32, device=cuda)
+    flat, unravel = ravel(server)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (3, 1, 512), generator=g).to(cuda)
+    guard_noise = torch.randn((3, 1, 512, 2048), generator=g).to(cuda)
+    out = {}
+    for on in (True, False):
+        parts = td.llm_step_parts(cfg, opts, adamw(1e-3), 3,
+                                  privacy=DPConfig(clip_norm=1.0, use_kernel=on))
+        calls = sum(dp_ops.plans.values())
+        grad, metrics = parts.grad(flat, unravel, banks, {"tokens": toks, "labels": toks},
+                                   None, guard_noise)
+        torch.cuda.synchronize()
+        out[on] = (grad, metrics, sum(dp_ops.plans.values()) - calls)
+    (k_grad, k_m, k_calls), (p_grad, p_m, p_calls) = out[True], out[False]
+    assert (k_calls, p_calls) == (1, 0)
+    for k in p_m:
+        torch.testing.assert_close(k_m[k], p_m[k], atol=1e-4, rtol=1e-4)
+    assert float((k_grad - p_grad).norm() / p_grad.norm()) <= 1e-3
+
+
+def test_llm_split_session_weights_are_the_cpus(cuda):
+    """One seed gives ``SplitSession(engine="llm-split")`` the same weights
+    on the card as on the CPU (a reduced llama3.2-1b): the draws come from a
+    CPU generator and move."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import SplitSession, SplitTrainConfig
+    from repro_torch.core import distributed as td
+    from repro_torch.models.transformer import ModelOptions
+
+    adapter = td.llm_adapter(get_config("llama3.2-1b").reduced(), ModelOptions(),
+                             torch.float32)
+    tc = SplitTrainConfig(n_clients=3, data_shares=(0.7, 0.2, 0.1), server_batch=3,
+                          privacy=DPConfig(clip_norm=1.0, use_kernel=True))
+    card, cpu = (SplitSession(adapter, tc, adamw(1e-3), engine="llm-split", seed=2, device=d)
+                 for d in (cuda, "cpu"))
+    assert all(torch.equal(a.cpu(), b)
+               for a, b in zip(tree_leaves(card.state), tree_leaves(cpu.state)))

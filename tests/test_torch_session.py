@@ -31,7 +31,6 @@ from repro_torch.configs import CHOLESTEROL_MLP as T_MLP
 from repro_torch.configs import COVID_CNN as T_COVID
 from repro_torch.core import SplitSession, SplitTrainConfig, available_engines
 from repro_torch.core.adapters import cnn_adapter, mlp_adapter
-from repro_torch.core.session import NOT_PORTED
 from repro_torch.optim import adamw
 from repro_torch.privacy import DPConfig
 from repro_torch.serving import poisson_trace as t_poisson_trace
@@ -179,10 +178,7 @@ def test_serve_spends_the_worst_clients_releases():
 
 def test_unported_paths_raise():
     _, port_session, shards, (xt, _) = _cnn("e2e")
-    for engine in NOT_PORTED:
-        with pytest.raises(ValueError, match="not ported yet.*available"):
-            port_session(engine)
-    with pytest.raises(ValueError, match="unknown"):
+    with pytest.raises(ValueError, match="unknown.*available"):
         port_session("no-such-engine")
     with pytest.raises(ValueError, match="mesh"):
         port_session("auto", mesh=object())
@@ -196,9 +192,10 @@ def test_unported_paths_raise():
     assert all(r.keys() == {"sigma", "mse", "psnr_db", "ncc"} for r in rows)
     with pytest.raises(ValueError, match="steps_per_epoch"):
         s.fit(shards, epochs=1, steps_per_epoch=0)
-    assert NOT_PORTED == ("llm-split",)
+    # every engine of the reference is ported
     assert available_engines() == ["auto", "fedavg", "fused-queue", "fused-scan",
-                                   "fused-stepwise", "looped-ref", "protocol-async"]
+                                   "fused-stepwise", "llm-split", "looped-ref",
+                                   "protocol-async"]
 
 
 def test_readme_port_quickstart_runs():
