@@ -103,9 +103,29 @@ second with the kernel on and off, the decode's tokens per second and
 into the banks through the release's plain backward (``lm_train_e2e``).
 Each LM phase prints the card's peak memory.
 
+Then the same phases for the MoE and SSM families (``LM_SPECS``):
+granite-moe-1b-a400m at its published width and depth (24 layers, 32
+experts top 8; ``moe_decode``, ``moe_train``, ``moe_restore``,
+``moe_forced``, ``moe_time``; the cut ``[3, 512, 1024]``) and
+falcon-mamba-7b at its published width cut to 12 of its 64 layers
+(``ssm_*``, the cut ``[3, 256, 4096]``, and ``ssm_remat``: one step's
+gradient with each group recomputed equals the gradient without, bit for
+bit, and the peak each adds); then ``hybrid``: jamba-1.5-large-398b's layer
+pattern (attention at 4 of every 8 layers, MoE every other layer) at its
+reduced widths, decoded bit-equal and against the CPU, and one
+``llm-split`` step against the CPU. Every comparison of a MoE model
+between two runs compares each token's top-K experts first
+(``Routing``): a flip is accepted only at a near tie (``ROUTING_EPS``),
+is printed, and then leaves that decode row out of the logits compared,
+or has the second run retaken with the first run's routing before the
+gradients are compared. ``check`` also holds both serving kernels in
+bfloat16 and float16 (the COVID-CT shapes and the LM cut) to their plain
+versions within one ulp and bit for bit on relaunch, and times them.
+
 It prints one JSON object per phase and a ``kernels`` line
 with every ported kernel (with its launches on the serving, training,
-queue, FedAvg, audit and LM paths). The last line is ``{"ok": true, "device": ...}``.
+queue, FedAvg, audit and LM paths, the MoE, SSM and hybrid ones among
+them, and the half-type cases). The last line is ``{"ok": true, "device": ...}``.
 
 Any failed phase raises and the script exits non-zero; so does a machine
 without a CUDA card. The weights are random, drawn from seed 0. TF32 is off
@@ -178,12 +198,15 @@ from repro_torch.kernels.selective_scan.ref import selective_scan_ref  # noqa: E
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch.train import lm_shards  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
-from repro_torch.models.transformer import ModelOptions  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models.transformer import ModelOptions, stack_split  # noqa: E402
 from repro_torch.optim import adamw, linear_warmup_cosine  # noqa: E402
 from repro_torch.privacy import DPConfig, PrivacyGuard, composed_epsilon  # noqa: E402
 from repro_torch.privacy import audit as audit_mod  # noqa: E402
 from repro_torch.privacy.audit import guard_noise_sweep, invert_features  # noqa: E402
 from repro_torch.serving import SplitInferenceServer, poisson_trace  # noqa: E402
+
+TOP_K = moe_mod._top_k  # the routing's own top-k, which ``Routing`` wraps
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM3 rate, float32 rate
 # outside the tensor cores, and the dense bfloat16 tensor-core rate (a
@@ -296,30 +319,11 @@ AUDIT_CARD_L1 = 1e-6
 # H100 80GB HBM3 at 700 W: L1 15.954905, MSE 4.6744943e-5, PSNR
 # 2.9840470e-3 dB, NCC 6.5067783e-3), times 3, rounded up.
 AUDIT_CPU_SPREAD = {"l1": 48.0, "mse": 1.5e-4, "psnr_db": 9e-3, "ncc": 2e-2}
-# the LM workload (lm_decode, lm_train, lm_time) at llama3.2-1b's published
-# width (16 layers, d 2048, 32 heads over 8 kv heads, hd 64, d_ff 8192,
-# vocab 128,256, rope theta 5e5), float32: decode with the settings of
-# examples/serve_decode.py (batch 4, prompt 64, gen 32); training by three
-# hospitals (0.7/0.2/0.1 of launch/train.py's corpus shards), one 512-token
-# window each a step (server batch 3), 2 epochs x 3 steps, AdamW with
-# launch/train.py's schedule, the clipped guard at epsilon 1 through
-# dp_release at the [3, 512, 2048] cut
-LM_CONFIG = "llama3.2-1b"
-LM_SEQ = 512
-LM_EPOCHS, LM_STEPS = 2, 3
-LM_DECODE = (4, 64, 32)  # batch, prompt, generated tokens
-LM_LR = 3e-4  # launch/train.py's default
-LM_TIME_ROUNDS = 3
-# the CPU retakes one training step at full width at this sequence length:
-# 128, since the card's 512 costs the host's 8 cores more than twice as
-# long (``tools/lm_smoke.py --cpu-seq 512`` reads it; PERF.md §6), a large
-# share of the time the LM phases may add; and the decode's steps for at
-# most this long (the first 16 positions at least)
-LM_CPU_SEQ = 128
-DECODE_CPU_BUDGET_S = 60.0
-# decode logits, card against CPU: float32 products of width 2048 to 8192
-# summed in another order, carried through 16 blocks and the tied head
-LM_LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
+# the serving kernels' half types: bfloat16 and float16 in, float32 sums,
+# the input's type out (as the TPU kernels); mantissa bits of each, for the
+# one-ulp gate of the check (kernel against its plain version, both
+# rounding a float32 value once)
+HALF_MANT = {torch.bfloat16: 7, torch.float16: 10}
 
 
 def emit(obj) -> None:
@@ -454,12 +458,13 @@ def check_banked(gen, dev, errs: dict) -> dict:
     return inputs
 
 
-def conv_work(B, H, W, cin, cout, scale) -> dict:
+def conv_work(B, H, W, cin, cout, scale, esize: int = 4) -> dict:
     out = B * (H // 2) * (W // 2) * cout
     # at noise_scale 0 the kernel never reads the noise (privacy_conv.cu
-    # sets it to null), so its bytes and multiply-add count only above 0
+    # sets it to null), so its bytes and multiply-add count only above 0;
+    # ``esize`` bytes an element (2 for the half types)
     noisy = scale > 0
-    nbytes = 4 * (B * H * W * cin + 9 * cin * cout + cout + (2 if noisy else 1) * out)
+    nbytes = esize * (B * H * W * cin + 9 * cin * cout + cout + (2 if noisy else 1) * out)
     # 9*Cin multiply-adds per pre-pool value, bias and ReLU on each, then
     # three max (and the noise multiply-add) per pooled value
     flops = B * H * W * cout * (2 * 9 * cin + 2) + out * (5 if noisy else 3)
@@ -473,8 +478,10 @@ def release_cases(sigma: float) -> dict:
     k = 3) with and without noise, F % 4 != 0 (scalar) and B = 1 on
     each side of the split, the queue's cycle, a FedAvg local step's
     release (32 rows, k = 1) with and without noise, the audit's (4 rows
-    at the sweep's largest sigma), and the LM cut of llama3.2-1b (3 rows
-    of 512 x 2048, k > 1) with and without noise."""
+    at the sweep's largest sigma), and the cut of each LM path (3 rows
+    of seq x d: llama3.2-1b's 512 x 2048, granite-moe-1b-a400m's 512 x
+    1024 and falcon-mamba-7b's 256 x 4096, k > 1) with and without
+    noise."""
     return {"covid_sigma0": ((64, 32, 32, 16), 0.0), "covid": ((64, 32, 32, 16), sigma),
             "mura": ((8, 112, 112, 64), sigma), "mura_sigma0": ((8, 112, 112, 64), 0.0),
             "train_covid": ((63, 32, 32, 16), sigma),
@@ -488,7 +495,8 @@ def release_cases(sigma: float) -> dict:
             "fedavg_local": ((32, 32, 32, 16), sigma),
             "fedavg_local_sigma0": ((32, 32, 32, 16), 0.0),
             "audit": ((4, 32, 32, 16), AUDIT_RELEASE_SIGMA),
-            "lm_cut": ((3, LM_SEQ, 2048), sigma), "lm_cut_sigma0": ((3, LM_SEQ, 2048), 0.0)}
+            **{f"{p}_cut{s}": ((3, spec.seq, spec_config(spec).d_model), sig)
+               for p, spec in LM_SPECS.items() for s, sig in (("", sigma), ("_sigma0", 0.0))}}
 
 
 def check_releases(gen, dev, cases: dict, errs: dict) -> tuple:
@@ -517,6 +525,90 @@ def check_releases(gen, dev, cases: dict, errs: dict) -> tuple:
     return inputs, seen
 
 
+def half_gate(got: torch.Tensor, want: torch.Tensor, dtype, what: str) -> float:
+    """``got`` within one ulp of the half type ``dtype`` (at the larger of
+    the two values; float16's subnormal step at its smallest) beyond
+    KERNEL_TOL of ``want``: each side rounds a float32 value once, and the
+    two float32 values part by up to KERNEL_TOL (sums in another order;
+    cuDNN's conv algorithm), which near a value that the noise all but
+    cancels is more than an ulp of that small value. Returns the largest
+    difference in ulps."""
+    g, w = got.float(), want.float()
+    floor = 2.0 ** (-24 if dtype == torch.float16 else -133)
+
+    def ulp(v):
+        e = torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126)))
+        return torch.exp2(e - HALF_MANT[dtype]).clamp(min=floor)
+
+    one = torch.maximum(ulp(g), ulp(w))
+    bad = (g - w).abs() > one + KERNEL_TOL["atol"] + KERNEL_TOL["rtol"] * w.abs()
+    if not torch.isfinite(g).all() or bool(bad.any()):
+        raise AssertionError(f"{what}: {int(bad.sum())} elements beyond one ulp and "
+                             f"KERNEL_TOL of the plain version")
+    return float(((g - w).abs() / one).max())
+
+
+def check_half(gen, dev, errs: dict, sigma: float) -> dict:
+    """``check`` for the serving kernels' half types: each kernel in
+    bfloat16 and float16 at the COVID-CT shapes (privacy_conv's client
+    stage ``[64, 64, 64, 1]`` -> 16 channels; dp_release's serving cut
+    ``[64, 32, 32, 16]``, 16,384 features a row) and dp_release at
+    llama3.2-1b's LM cut ``[3, 512, 2048]`` (with and without noise); each
+    launched twice (identical bits) and held to its plain version within
+    one ulp of the type beyond the float32 tolerance (``half_gate``).
+    Returns ``{case: (kernel, plain, work, dtype)}``
+    for ``time_half``."""
+    B, H, W, cin, cout, scale = CONV_CASES["covid"]
+    conv = conv_case(gen, B, H, W, cin, cout, dev)
+    lm_shape = (3, LM_SPECS["lm"].seq, spec_config(LM_SPECS["lm"]).d_model)
+    rel = {"covid": ((64, 32, 32, 16), sigma), "lm_cut": (lm_shape, sigma),
+           "lm_cut_sigma0": (lm_shape, 0.0)}
+    rel_in = {k: (torch.randn(shape, generator=gen).to(dev), torch.randn(shape, generator=gen)
+                  .to(dev)) for k, (shape, _) in rel.items()}
+    out = {}
+    for dt in HALF_MANT:
+        name = str(dt).removeprefix("torch.")
+        x, w, b, nz = (t.to(dt) for t in conv)
+        kernel = (lambda x=x, w=w, b=b, nz=nz: pc_ops.privacy_conv_forward(x, w, b, nz, scale))
+        plain = (lambda x=x, w=w, b=b, nz=nz: privacy_conv_ref(x, w, b, nz, noise_scale=scale))
+        out[f"privacy_conv/covid/{name}"] = (kernel, plain, conv_work(B, H, W, cin, cout, scale,
+                                                                      esize=2), dt,
+                                             pc_ops.plan_for(x, w, nz, scale))
+        for case, (shape, s) in rel.items():
+            xr, nr = (t.to(dt) for t in rel_in[case])
+            out[f"dp_release/{case}/{name}"] = (
+                lambda xr=xr, nr=nr, s=s: dp_ops.dp_release_forward(xr, nr, 1.0, s),
+                lambda xr=xr, nr=nr, s=s: dp_release_ref(xr, nr, clip_norm=1.0, sigma=s),
+                release_work(shape, s, esize=2), dt, dp_ops.plan_for(xr, nr, s))
+    for case, (kernel, plain, work, dt, plan) in out.items():
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        if got.dtype != dt or not torch.equal(got, again):
+            raise AssertionError(f"{case}: dtype {got.dtype} or a relaunch gave other bits")
+        want = plain()
+        u = half_gate(got, want, dt, case)
+        errs[case] = float((got.float() - want.float()).abs().max())
+        emit({"phase": "check", "case": case, "dtype": str(dt).removeprefix("torch."),
+              "shape": list(got.shape), "plan": plan, "bit_identical_relaunch": True,
+              "max_ulps": u, "tol": "one ulp beyond KERNEL_TOL", **KERNEL_TOL,
+              "max_abs_err": errs[case]})
+        out[case] = (kernel, plain, work, dt, plan, u)
+    return out
+
+
+def time_half(smi: str, cases: dict) -> dict:
+    """Each half-type case of ``check_half``: kernel and plain device ms in
+    turns, and its bound (2 bytes an element)."""
+    timed = {}
+    for case, (kernel, plain, work, dt, plan, u) in cases.items():
+        k_ms, p_ms = paired_ms(kernel, plain)
+        timed[case] = t = {"case": case, "dtype": str(dt).removeprefix("torch."), "ms": k_ms,
+                           "plain_ms": p_ms, "plan": plan, "max_ulps": u, "library_ms": None,
+                           **work, "bound_share": work["bound_ms"] / k_ms}
+        emit({"phase": "time", "card": smi, **t})
+    return timed
+
+
 def other_release_plan(plan: dict, rows: int, feats: int, sm_count: int) -> dict:
     """The plan that ``plan`` beat: one block a row (the parent's design)
     where it splits rows, else the split that fills the SMs with no floor on
@@ -530,9 +622,9 @@ def other_release_plan(plan: dict, rows: int, feats: int, sm_count: int) -> dict
             "plan": {**plan, "blocks_per_row": -(-feats // chunk), "chunk": chunk, "launches": 2}}
 
 
-def release_work(shape, sigma: float) -> dict:
+def release_work(shape, sigma: float, esize: int = 4) -> dict:
     n = int(np.prod(shape))
-    nbytes = 4 * n * (3 if sigma > 0 else 2)
+    nbytes = esize * n * (3 if sigma > 0 else 2)
     flops = n * (5 if sigma > 0 else 3)  # x*x+acc, x*scale (+ sigma*noise + add)
     return bound(nbytes, flops)
 
@@ -1803,10 +1895,96 @@ def fedavg_time(dev, smi: str, conv_inputs: dict, release_inputs: dict, audit: d
     return {"timed": timed, "device_ms_per_local_step": per_step}
 
 
-# ==== the LM workload: llama3.2-1b at its published width
+# ==== the LM workload: llama3.2-1b, granite-moe-1b-a400m, falcon-mamba-7b
+@dataclasses.dataclass(frozen=True)
+class LMSpec:
+    """One LM path of the smoke. ``prefix`` names its phases; the config is
+    ``config`` at its published width (``n_layers`` cuts its depth; with
+    ``reduced``, its ``reduced()`` widths with ``overrides``); ``seq`` is
+    the training window, ``cpu_seq`` the window of the step the CPU
+    retakes; ``decode`` is (batch, prompt, generated tokens) and
+    ``cpu_budget_s`` the CPU decode replay's budget; ``time_rounds`` the
+    turns of the timed epochs and ``profile_steps`` the steps profiled
+    for the busy share; ``e2e`` and ``remat`` add lm_train_e2e and
+    ``<prefix>_remat``."""
+
+    prefix: str
+    config: str
+    seq: int
+    cpu_seq: int
+    n_layers: int = 0
+    reduced: bool = False
+    overrides: tuple = ()
+    decode: tuple = (4, 64, 32)
+    cpu_budget_s: float = 60.0
+    time_rounds: int = 3
+    e2e: bool = False
+    remat: bool = False
+    profile_steps: int = 3
+
+
+# the LM paths at published widths, float32 (TF32 off), all trained by three
+# hospitals (0.7/0.2/0.1 of launch/train.py's corpus shards), one window
+# each a step (server batch 3), 2 epochs x 3 steps, AdamW with
+# launch/train.py's schedule, the clipped guard at epsilon 1 through
+# dp_release at the [3, seq, d] cut; decode with the settings of
+# examples/serve_decode.py (batch 4, prompt 64, gen 32):
+# - llama3.2-1b (16 layers, d 2048, 32 heads over 8 kv heads, hd 64, d_ff
+#   8192, vocab 128,256, rope theta 5e5) at 512 tokens; the CPU retakes a
+#   step at 128, since the card's 512 costs the host's 8 cores more than
+#   twice as long (``tools/lm_smoke.py --cpu-seq 512`` reads it);
+# - granite-moe-1b-a400m (24 layers, d 1024, 16 heads over 8, 32 experts
+#   top 8 of d_ff 512, vocab 49,155) at 512 tokens, its published depth;
+# - falcon-mamba-7b (d 4096, d_inner 8192, d_state 16, vocab 65,024) cut to
+#   12 of its 64 layers (the AdamW state of 64 is ~116 GB; at 16 the
+#   restore phase peaked at 70.34 GiB, past the 70 GiB the card's 80 GB
+#   leave room for) at 256 tokens: 3 x 256 x 4096 is the 1,048,576-element
+#   row that the reference's dp_release kernel admits (its VMEM assert);
+#   the CPU step at 64 tokens
+# - and, apart (``hybrid``), jamba-1.5-large-398b's layer pattern (16
+#   layers: attention at 4 of every 8, MoE every other layer) at its
+#   reduced widths, since one of its MoE layers alone is 38.7 GB at the
+#   published width
+LM_SPECS = {
+    "lm": LMSpec("lm", "llama3.2-1b", seq=512, cpu_seq=128, e2e=True),
+    "moe": LMSpec("moe", "granite-moe-1b-a400m", seq=512, cpu_seq=128, cpu_budget_s=20.0,
+                  time_rounds=2),
+    # one step profiled: the scan's ~40,000 launches a step take the
+    # profiler's host side ~30 s a step to tabulate
+    "ssm": LMSpec("ssm", "falcon-mamba-7b", seq=256, cpu_seq=64, n_layers=12,
+                  cpu_budget_s=20.0, time_rounds=2, remat=True,
+                  profile_steps=1),
+}
+HYBRID = LMSpec("hybrid", "jamba-1.5-large-398b", seq=128, cpu_seq=128, reduced=True,
+                overrides=(("n_layers", 16), ("attn_period", 8), ("attn_offset", 4),
+                           ("moe_period", 2)),
+                cpu_budget_s=30.0)
+LM_EPOCHS, LM_STEPS = 2, 3
+LM_LR = 3e-4  # launch/train.py's default
+# decode logits, card against CPU: float32 products of width 1024 to 8192
+# summed in another order, carried through 16 to 24 blocks and the head
+LM_LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)
+# a MoE token's top-K experts may differ between two runs (card and CPU,
+# kernel and plain release) only where its K-th and (K+1)-th router
+# probabilities lie this close in the first run: float32 rounding moves a
+# probability of ~1/32 by ~1e-7, and the typical gap is ~1e-3
+ROUTING_EPS = 1e-4
+
+
+def spec_config(spec: LMSpec):
+    cfg = get_config(spec.config)
+    if spec.reduced:
+        cfg = cfg.reduced()
+    kw = dict(spec.overrides)
+    if spec.n_layers:
+        kw["n_layers"] = spec.n_layers
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
 def lm_kernel_counts() -> dict:
     """The LM kernels' launch counters (the LM model calls neither: the
-    reference's runs its own XLA attention, ``repro/models/attention.py:3-6``)."""
+    reference's runs its own XLA attention and SSM scan,
+    ``repro/models/attention.py:3-6``, ``repro/models/ssm.py:51-73``)."""
     return {"flash_attention": fa_ops.launches, "selective_scan": ss_ops.launches}
 
 
@@ -1821,37 +1999,108 @@ def free_card() -> None:
     torch.cuda.reset_peak_memory_stats()
 
 
-def lm_session(dev, mode="detached") -> SplitSession:
-    """llama3.2-1b split by launch/train.py's recipe: three hospitals, one
-    window a step each, adamw(linear_warmup_cosine(3e-4, 20, steps)), the
-    guard clipped at epsilon 1, the release through dp_release
+class Routing:
+    """Inside ``with``: every MoE dispatch's top-K expert ids and the gap
+    between its K-th and (K+1)-th router probability, call by call
+    (``models.moe._top_k`` patched). With ``replay`` (a recorded run), each
+    call takes that run's ids in place of its own top-K, its gates read
+    from its own probabilities: the same routing, for a comparison of the
+    arithmetic where routing flipped."""
+
+    def __init__(self, replay=None):
+        self.ids, self.gaps, self.replay = [], [], replay
+        self._patch = mock.patch.object(moe_mod, "_top_k", self._top_k)
+
+    def __enter__(self):
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+    def _top_k(self, probs, k):
+        if self.replay is None:
+            vals, ids = TOP_K(probs, k)
+        else:
+            ids = self.replay.ids[len(self.ids)].to(probs.device)
+            vals = probs.gather(-1, ids)
+        top = torch.topk(probs.detach(), k + 1, dim=-1).values
+        self.ids.append(ids.detach())
+        self.gaps.append((top[:, k - 1] - top[:, k]).detach())
+        return vals, ids
+
+
+def routing_gate(a: Routing, b: Routing, what: str) -> dict:
+    """The top-K expert sets of run ``b`` against run ``a``, call by call
+    (``b`` may have stopped earlier): a token whose set differs (a flip)
+    must sit at a near tie in ``a`` (gap below ROUTING_EPS), else the gate
+    fails. Returns the counts and, by call, the flipped tokens."""
+    flips, near, masks = 0, 0, []
+    for ia, ib, gap in zip(a.ids, b.ids, a.gaps):
+        flipped = (ia.sort(-1).values.cpu() != ib.sort(-1).values.cpu()).any(-1)
+        tie = gap.cpu() < ROUTING_EPS
+        if bool((flipped & ~tie).any()):
+            raise AssertionError(f"{what}: {int((flipped & ~tie).sum())} routing flips away "
+                                 f"from a near tie (gap >= {ROUTING_EPS})")
+        flips += int(flipped.sum())
+        near += int(tie.sum())
+        masks.append(flipped)
+    return {"routing_calls": len(masks), "routing_flips": flips, "near_ties": near,
+            "routing_eps": ROUTING_EPS, "masks": masks}
+
+
+def routed_grads(fa, fb, what: str):
+    """Two gradient runs (``fa``, ``fb``: ``() -> (grad, metrics)``), their
+    routing compared (``routing_gate``). Where a token flipped, ``fb`` is
+    retaken with ``fa``'s routing, so that the gradients compared come
+    from one routing. Returns both runs and the routing counts."""
+    with Routing() as ra:
+        a = fa()
+    with Routing() as rb:
+        b = fb()
+    route = routing_gate(ra, rb, what)
+    del route["masks"]
+    route["routing_replayed"] = bool(route["routing_flips"])
+    if route["routing_flips"]:
+        del b
+        with Routing(replay=ra):
+            b = fb()
+    return a, b, route
+
+
+def lm_session(dev, spec: LMSpec, mode="detached") -> SplitSession:
+    """``spec``'s config split by launch/train.py's recipe: three hospitals,
+    one window a step each, adamw(linear_warmup_cosine(3e-4, 20, steps)),
+    the guard clipped at epsilon 1, the release through dp_release
     (``lm_parts`` gives the step's other variants)."""
-    cfg = get_config(LM_CONFIG)
     dp = DPConfig(epsilon=1.0, delta=1e-5, clip_norm=1.0, use_kernel=True)
     tc = SplitTrainConfig(n_clients=3, data_shares=SHARES, server_batch=3, mode=mode, privacy=dp)
     opt = adamw(linear_warmup_cosine(LM_LR, 20, LM_EPOCHS * LM_STEPS))
-    adapter = llm_adapter(cfg, ModelOptions(q_block=LM_SEQ, kv_block=LM_SEQ), torch.float32)
+    adapter = llm_adapter(spec_config(spec), ModelOptions(q_block=spec.seq, kv_block=spec.seq),
+                          torch.float32)
     return SplitSession(adapter, tc, opt, engine="llm-split", seed=0, device=dev)
 
 
-def lm_parts(sess, on: bool, noise_scale=None):
+def lm_parts(sess, on: bool, noise_scale=None, remat: bool = False):
     """The flat-domain step of ``sess``'s config with the release through
-    the kernel (``on``) or its plain version, at ``noise_scale``."""
+    the kernel (``on``) or its plain version, at ``noise_scale``; with
+    ``remat``, each group recomputed in the backward pass."""
     dp = dataclasses.replace(sess.config.privacy, use_kernel=on,
                              noise_scale=(sess.config.privacy.noise_scale if noise_scale is None
                                           else noise_scale))
     a = sess.adapter
-    return llm_step_parts(a.cfg, a.opts, sess.opt, sess.config.n_clients,
+    opts = dataclasses.replace(a.opts, remat=True) if remat else a.opts
+    return llm_step_parts(a.cfg, opts, sess.opt, sess.config.n_clients,
                           grad_clip=sess.config.grad_clip, privacy=dp,
                           mode=sess.config.mode)
 
 
-def lm_plan(sess, shards, steps, seed, dev):
+def lm_plan(sess, shards, steps, seed, dev, seq):
     """``steps`` batches of the session's plan drawn from a CPU generator
     seeded ``seed``: ``[(batch, guard_noise)]`` on ``dev``."""
     data_x, data_y, lens = device_put_shards(shards, dev)
     plan = make_sample_plan(sess.adapter, sess.config, steps)(
-        lens, (LM_SEQ,), torch.Generator().manual_seed(seed), dev)
+        lens, (seq,), torch.Generator().manual_seed(seed), dev)
     rows = torch.arange(sess.config.n_clients, device=dev)[:, None]
     return [({"tokens": data_x[rows, plan.idx[t]], "labels": data_y[rows, plan.idx[t]]},
              None if plan.guard_noise is None else plan.guard_noise[t]) for t in range(steps)]
@@ -1895,16 +2144,20 @@ def forced_logits(cfg, params, prompts, tokens, budget_s=None) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
-def lm_decode(dev, smi: str) -> dict:
-    """``lm_decode``: serve.prefill_and_decode at temperature 0 on the
-    card, twice (bit-equal token streams, each step's shape and dtype
+def lm_decode(dev, smi: str, spec: LMSpec) -> dict:
+    """``<prefix>_decode``: serve.prefill_and_decode at temperature 0 on
+    the card, twice (bit-equal token streams, each step's shape and dtype
     checked), its teacher-forced replay equal to the free run's tokens, and
-    the same replay on the CPU: logits within LM_LOGIT_TOL at every
-    position it reached, greedy tokens equal wherever the card's top-2 gap
-    exceeds twice the tolerance. No kernel runs on this path."""
-    cfg = get_config(LM_CONFIG)
-    B, P, G = LM_DECODE
+    the same replay on the CPU for at most ``cpu_budget_s``: the MoE
+    routing of each position against the card's (``routing_gate``; a row's
+    positions from a flip on are left out), then logits within
+    LM_LOGIT_TOL at every other position it reached, greedy tokens equal
+    wherever the card's top-2 gap exceeds twice the tolerance. No kernel
+    runs on this path."""
+    cfg = spec_config(spec)
+    B, P, G = spec.decode
     free_card()
+    # serve._model's init: the CPU generator of seeded_generator(0)
     params = model_lib.init_model(seeded_generator(0), cfg, torch.float32, dev)
     prompts = serve.make_prompts(cfg, B, P, seed=0, device=dev)
     reset_counts()
@@ -1920,33 +2173,46 @@ def lm_decode(dev, smi: str) -> dict:
         raise AssertionError("greedy decode is not deterministic on the card")
     if not ((0 <= tokens) & (tokens < cfg.vocab_size)).all():
         raise AssertionError("decoded tokens out of the vocabulary")
-    card = forced_logits(cfg, params, prompts, tokens)
+    with Routing() as card_route:
+        card = forced_logits(cfg, params, prompts, tokens)
     if not np.array_equal(card[:, P - 1:P + G - 1].argmax(-1).numpy(), tokens):
         raise AssertionError("the teacher-forced replay does not give the free run's tokens")
     peak = peak_gib()
     cpu_params = tree_map(lambda a: a.cpu(), params)
     del params
     t0 = time.perf_counter()
-    cpu = forced_logits(cfg, cpu_params, prompts.cpu(), tokens, budget_s=DECODE_CPU_BUDGET_S)
+    with Routing() as cpu_route:
+        cpu = forced_logits(cfg, cpu_params, prompts.cpu(), tokens, budget_s=spec.cpu_budget_s)
     cpu_s = time.perf_counter() - t0
     n = cpu.shape[1]
     if n < min(16, P + G):
         raise AssertionError(f"the CPU replay reached {n} positions in {cpu_s} s")
+    route = routing_gate(card_route, cpu_route, f"{spec.prefix}_decode")
+    # rows are independent in decode: a flip at (position, row) leaves that
+    # row's logits from there on out of the comparison
+    same = torch.ones((B, n), dtype=torch.bool)
+    per_step = len(card_route.ids) // (P + G)
+    for i, flipped in enumerate(route.pop("masks")):
+        same[flipped, i // per_step:] = False
     card = card[:, :n]
-    err = max_err(cpu, card, **LM_LOGIT_TOL, what="decode logits, CPU against the card")
+    err = max_err(cpu[same], card[same], **LM_LOGIT_TOL,
+                  what="decode logits, CPU against the card")
     top = card.topk(2, dim=-1).values
     clear = (top[..., 0] - top[..., 1]) > 2 * (LM_LOGIT_TOL["atol"]
                                                + LM_LOGIT_TOL["rtol"] * top[..., 0].abs())
     agree = card.argmax(-1) == cpu.argmax(-1)
-    if not bool(agree[clear].all()):
+    if not bool(agree[clear & same].all()):
         raise AssertionError("greedy tokens differ from the CPU's at a clear top-2 gap")
     timed = {k: runs[1][k] for k in ("tokens_per_s", "prefill_s", "decode_s")}
-    emit({"phase": "lm_decode", "card": smi, "config": LM_CONFIG, "batch": B, "prompt": P,
+    emit({"phase": f"{spec.prefix}_decode", "card": smi, "config": cfg.name,
+          "n_layers": cfg.n_layers, "batch": B, "prompt": P,
           "gen": G, "dtype": "float32", "tf32": False, "tied_embeddings": cfg.tie_embeddings,
           "bit_equal_runs": True, "steps_checked": P + G, "launches": launches,
           "forced_replay_equals_tokens": True, "cpu_positions": n, "positions": P + G,
-          "cpu_s": cpu_s, "cpu_budget_s": DECODE_CPU_BUDGET_S,
+          "cpu_s": cpu_s, "cpu_budget_s": spec.cpu_budget_s, **route,
+          "positions_compared": int(same.sum()),
           "max_abs_err_vs_cpu": err, "near_ties": int((~clear).sum()),
+          "moe_near_ties": route["near_ties"],
           "near_tie_disagreements": int((~agree & ~clear).sum()), **LM_LOGIT_TOL,
           "peak_gib": peak, **timed, "first_tokens": tokens[0][:8].tolist()})
     return {**timed, "launches": launches}
@@ -1954,44 +2220,50 @@ def lm_decode(dev, smi: str) -> dict:
 
 def lm_forced(sess, plan, noise_scale, what: str) -> dict:
     """Each step of ``plan`` retaken from one state by the kernel release
-    and the plain one on the card (``grad_gate``), the kernel step then
-    applied, along ``sess``'s native state."""
+    and the plain one on the card (``routed_grads``, then ``grad_gate``),
+    the kernel step then applied, along ``sess``'s native state."""
     k_parts, p_parts = lm_parts(sess, True, noise_scale), lm_parts(sess, False, noise_scale)
     native, unravel = sess.native_state, sess.engine._unravel
     flat, banks, opt_state, step = (native["flat"], native["client_banks"], native["opt"],
                                     native["step"])
     worst = {"metrics": 0.0, "grad_rel_l2": 0.0}
+    routing = {"routing_flips": 0, "near_ties": 0, "steps_replayed": 0}
     calls0 = sum(dp_ops.plans.values())
     for t, (batch, noise) in enumerate(plan):
         if noise_scale == 0.0:
             noise = None
-        k = k_parts.grad(flat, unravel, banks, batch, None, noise)
-        p = p_parts.grad(flat, unravel, banks, batch, None, noise)
+        k, p, route = routed_grads(
+            lambda: k_parts.grad(flat, unravel, banks, batch, None, noise),
+            lambda: p_parts.grad(flat, unravel, banks, batch, None, noise), f"{what} step {t}")
         w = grad_gate(k, p, f"{what} step {t}")
         worst = {key: max(worst[key], w[key]) for key in worst}
+        routing = {"routing_flips": routing["routing_flips"] + route["routing_flips"],
+                   "near_ties": routing["near_ties"] + route["near_ties"],
+                   "steps_replayed": routing["steps_replayed"] + route["routing_replayed"]}
         del p
         k_parts.apply(flat, opt_state, step, k[0])
         step = step + 1
     calls = sum(dp_ops.plans.values()) - calls0
     if calls != len(plan):
         raise AssertionError(f"{what}: {calls} dp_release calls in {len(plan)} steps")
-    return {**worst, "steps": len(plan), "dp_release_calls": calls}
+    return {**worst, **routing, "steps": len(plan), "dp_release_calls": calls}
 
 
-def lm_train(dev, smi: str, tmp: str) -> dict:
-    """``lm_train`` and its gates: SplitSession(engine="llm-split") trains
-    llama3.2-1b detached, 2 epochs x 3 steps (one dp_release call a step
-    over the [3, 512, 2048] cut, the budget at 6, finite losses), evaluates,
-    and restores bit for bit (``lm_restore``); every step of a 6-step plan
-    retaken from one state, kernel against the plain release on the card at
-    the calibrated sigma and at sigma 0, and one step against the CPU
-    (``lm_forced``). Returns the session and the path's counts."""
-    cfg = get_config(LM_CONFIG)
-    shards = lm_shards(cfg, SHARES, 1, LM_SEQ, 0)
+def lm_train(dev, smi: str, tmp: str, spec: LMSpec) -> dict:
+    """``<prefix>_train`` and its gates: SplitSession(engine="llm-split")
+    trains ``spec``'s config detached, 2 epochs x 3 steps (one dp_release
+    call a step over the [3, seq, d] cut, the budget at 6, finite losses),
+    evaluates, and restores bit for bit (``<prefix>_restore``); every step
+    of a 6-step plan retaken from one state, kernel against the plain
+    release on the card at the calibrated sigma and at sigma 0, and one
+    step against the CPU at ``cpu_seq`` (``<prefix>_forced``). Returns the
+    session, a plan and the path's counts."""
+    cfg = spec_config(spec)
+    shards = lm_shards(cfg, SHARES, 1, spec.seq, 0)
     n = LM_EPOCHS * LM_STEPS
     free_card()
     t0 = time.perf_counter()
-    sess = lm_session(dev)
+    sess = lm_session(dev, spec)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     reset_counts()
@@ -2007,10 +2279,11 @@ def lm_train(dev, smi: str, tmp: str) -> dict:
     if (release["calls"] != n or launches != {"privacy_conv": 0, "flash_attention": 0,
                                                 "selective_scan": 0,
                                                 "dp_release": n * release["plan"]["launches"]}):
-        raise AssertionError(f"lm_train launches {ran}, want one dp_release call a step")
+        raise AssertionError(f"{spec.prefix}_train launches {ran}, want one dp_release call "
+                             "a step")
     losses = step_losses(sess)
     if len(losses) != n or not np.isfinite(losses).all():
-        raise AssertionError(f"lm_train per-step losses {losses}")
+        raise AssertionError(f"{spec.prefix}_train per-step losses {losses}")
     report = sess.privacy_report()
     if report["releases"] != n:
         raise AssertionError(f"budget counts {report['releases']} releases, want {n}")
@@ -2019,15 +2292,18 @@ def lm_train(dev, smi: str, tmp: str) -> dict:
     server_params = sum(a.numel() for a in tree_leaves(canonical["server"]))
     bank_params = sum(a.numel() for a in tree_leaves(canonical["client_banks"])) // 3
     del canonical
-    path = sess.save(os.path.join(tmp, "lm"))
+    path = sess.save(os.path.join(tmp, spec.prefix))
     xe = shards[0][0][:6]
     reset_counts()
     ev = sess.evaluate(xe, xe, batch=3)
     if kernel_counts()["dp_release"]["launches"]:
         raise AssertionError("evaluate released through dp_release")
-    emit({"phase": "lm_train", "card": smi, "config": LM_CONFIG, "mode": "detached",
+    emit({"phase": f"{spec.prefix}_train", "card": smi, "config": cfg.name,
+          "n_layers": cfg.n_layers, "published_layers": get_config(spec.config).n_layers,
+          "family": cfg.family, "mode": "detached",
           "engine": "llm-split", "dtype": "float32", "tf32": False, "clients": 3,
-          "seq": LM_SEQ, "rows_per_step": 3, "epochs": LM_EPOCHS, "steps_per_epoch": LM_STEPS,
+          "seq": spec.seq, "rows_per_step": 3, "epochs": LM_EPOCHS,
+          "steps_per_epoch": LM_STEPS,
           "server_params": server_params, "bank_params": bank_params, "init_s": init_s,
           "wall_s": wall, "step_losses": losses, "sigma": report["sigma"],
           "launches": launches, "plans": ran,
@@ -2035,65 +2311,102 @@ def lm_train(dev, smi: str, tmp: str) -> dict:
           "evaluate": {k: ev[k] for k in ("loss", "accuracy")}, "evaluate_rows": len(xe),
           "peak_gib": peak_fit})
 
-    # ---- lm_restore: the run continues one epoch; a session restored from
-    # its checkpoint continues the same epoch, bit for bit
+    # ---- <prefix>_restore: the run continues one epoch; a session restored
+    # from its checkpoint continues the same epoch, bit for bit
     sess.fit(shards, epochs=1, steps_per_epoch=LM_STEPS)
     want = tree_map(lambda a: a.detach().cpu(), sess.state)
     want_losses = step_losses(sess)
     del sess
     free_card()
     t0 = time.perf_counter()
-    sess = lm_session(dev)
+    sess = lm_session(dev, spec)
     manifest = sess.restore(path)
     restore_s = time.perf_counter() - t0
     sess.fit(shards, epochs=1, steps_per_epoch=LM_STEPS)
     same = all(torch.equal(a.cpu(), b) for a, b in zip(tree_leaves(sess.state),
                                                         tree_leaves(want)))
     if not same or step_losses(sess) != want_losses:
-        raise AssertionError("the restored LM run differs")
+        raise AssertionError(f"the restored {spec.prefix} run differs")
     if manifest["metadata"]["epochs_done"] != LM_EPOCHS:
         raise AssertionError(f"restored epoch count {manifest['metadata']['epochs_done']}")
     del want
-    emit({"phase": "lm_restore", "bit_identical": True, "step_losses": want_losses,
-          "checkpoint_gib": os.path.getsize(path) / 2 ** 30, "restore_s": restore_s,
+    checkpoint_gib = os.path.getsize(path) / 2 ** 30
+    for f in (path, path.replace(".npz", ".json")):  # the next path's checkpoint needs the disk
+        os.remove(f)
+    emit({"phase": f"{spec.prefix}_restore", "bit_identical": True, "step_losses": want_losses,
+          "checkpoint_gib": checkpoint_gib, "restore_s": restore_s,
           "deterministic_algorithms": torch.are_deterministic_algorithms_enabled(),
           "peak_gib": peak_gib()})
 
-    # ---- lm_forced: each step retaken from one state, kernel against plain
+    # ---- <prefix>_forced: each step retaken from one state, kernel against plain
     free_card()
-    plan = lm_plan(sess, shards, n, 5, dev)
-    forced = {"calibrated": lm_forced(sess, plan, None, "lm_forced"),
-              "sigma0": lm_forced(sess, plan, 0.0, "lm_forced sigma 0")}
+    plan = lm_plan(sess, shards, n, 5, dev, spec.seq)
+    forced = {"calibrated": lm_forced(sess, plan, None, f"{spec.prefix}_forced"),
+              "sigma0": lm_forced(sess, plan, 0.0, f"{spec.prefix}_forced sigma 0")}
     forced["peak_gib"] = peak_gib()
-    # one step against the CPU at full width (the first LM_CPU_SEQ tokens)
+    # one step against the CPU at full width (the first cpu_seq tokens)
     batch, noise = plan[0]
-    batch = {k: v[..., :LM_CPU_SEQ] for k, v in batch.items()}
-    noise = noise[:, :, :LM_CPU_SEQ].contiguous()
+    batch = {k: v[..., :spec.cpu_seq] for k, v in batch.items()}
+    noise = noise[:, :, :spec.cpu_seq].contiguous()
     native, unravel = sess.native_state, sess.engine._unravel
-    k = lm_parts(sess, True).grad(native["flat"], unravel, native["client_banks"], batch, None,
-                                  noise)
+    cpu_flat = native["flat"].cpu()
+    cpu_banks = tree_map(lambda a: a.cpu(), native["client_banks"])
+    t0 = []
+
+    def on_cpu():
+        t0.append(time.perf_counter())
+        return lm_parts(sess, False).grad(cpu_flat, unravel, cpu_banks,
+                                          {key: v.cpu() for key, v in batch.items()}, None,
+                                          noise.cpu())
+
+    k, cpu, route = routed_grads(
+        lambda: lm_parts(sess, True).grad(native["flat"], unravel, native["client_banks"],
+                                          batch, None, noise), on_cpu,
+        f"{spec.prefix}_forced cpu")
+    cpu_s = time.perf_counter() - t0[-1]
     k = (k[0].cpu(), {key: v.cpu() for key, v in k[1].items()})
-    t0 = time.perf_counter()
-    cpu = lm_parts(sess, False).grad(native["flat"].cpu(), unravel,
-                                      tree_map(lambda a: a.cpu(), native["client_banks"]),
-                                      {key: v.cpu() for key, v in batch.items()}, None,
-                                      noise.cpu())
-    forced["cpu"] = {**grad_gate(k, cpu, "lm_forced cpu"), "seq": LM_CPU_SEQ,
-                     "cpu_s": time.perf_counter() - t0}
-    emit({"phase": "lm_forced", "sigma": sess.guard.sigma, "tf32": False,
+    forced["cpu"] = {**grad_gate(k, cpu, f"{spec.prefix}_forced cpu"), **route,
+                     "seq": spec.cpu_seq, "cpu_s": cpu_s}
+    del k, cpu, cpu_flat, cpu_banks
+    emit({"phase": f"{spec.prefix}_forced", "sigma": sess.guard.sigma, "tf32": False,
           "grad_tol": GRAD_TOL, **TRAIN_TOL, **forced})
-    return {"session": sess, "shards": shards, "launches": launches,
-            "calls": release["calls"], "plan": release["plan"], "forced": forced}
+    return {"session": sess, "shards": shards, "launches": launches, "plan": plan,
+            "calls": release["calls"], "release_plan": release["plan"], "forced": forced}
 
 
-def lm_e2e(dev, smi: str, shards) -> None:
+def lm_remat(smi: str, sess, plan, spec: LMSpec) -> dict:
+    """``<prefix>_remat``: one step's gradient with each group recomputed in
+    the backward pass (``ModelOptions(remat=True)``) equals the gradient
+    without, bit for bit; the peak memory each adds to what the session
+    holds."""
+    batch, noise = plan[0]
+    native, unravel = sess.native_state, sess.engine._unravel
+    grads, extra = {}, {}
+    for remat in (False, True):
+        free_card()
+        base = torch.cuda.memory_allocated()
+        grads[remat] = lm_parts(sess, True, remat=remat).grad(
+            native["flat"], unravel, native["client_banks"], batch, None, noise)[0]
+        torch.cuda.synchronize()
+        extra[remat] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    if not torch.equal(grads[False], grads[True]):
+        raise AssertionError(f"{spec.prefix}_remat: the gradient with remat differs by "
+                             f"{float((grads[False] - grads[True]).abs().max())}")
+    out = {"bit_equal": True, "extra_peak_gib_off": extra[False],
+           "extra_peak_gib_on": extra[True], "held_gib": torch.cuda.memory_allocated() / 2 ** 30}
+    emit({"phase": f"{spec.prefix}_remat", "card": smi, "config": sess.adapter.cfg.name,
+          "seq": spec.seq, **out})
+    return out
+
+
+def lm_e2e(dev, smi: str, shards, spec: LMSpec) -> None:
     """``lm_train_e2e``: per-client banks trained e2e; one step's gradient
     (into the banks through dp_release's plain backward) with the kernel
     release against the plain one on the card, from one state; then one
     step of the session, one dp_release call."""
     free_card()
-    sess = lm_session(dev, mode="e2e")
-    (batch, noise), = lm_plan(sess, shards, 1, 6, dev)
+    sess = lm_session(dev, spec, mode="e2e")
+    (batch, noise), = lm_plan(sess, shards, 1, 6, dev, spec.seq)
     native, unravel = sess.native_state, sess.engine._unravel
     calls0 = sum(dp_ops.plans.values())
     k = lm_parts(sess, True).grad(native["flat"], unravel, None, batch, None, noise)
@@ -2111,74 +2424,80 @@ def lm_e2e(dev, smi: str, shards) -> None:
     if kernel_calls != 1 or calls != 1 or not np.isfinite(losses).all():
         raise AssertionError(f"e2e: {kernel_calls} and {calls} dp_release calls, loss {losses}")
     trainable = sess.native_state["flat"].numel()
-    emit({"phase": "lm_train_e2e", "card": smi, "config": LM_CONFIG, "mode": "e2e",
-          "trainable_params": trainable, "gate": gate, "grad_tol": GRAD_TOL, **TRAIN_TOL,
-          "dp_release_calls": calls, "step_loss": losses[0], "peak_gib_gate": peak_gate,
-          "peak_gib_step": peak_gib()})
+    emit({"phase": f"{spec.prefix}_train_e2e", "card": smi, "config": spec.config,
+          "mode": "e2e", "trainable_params": trainable, "gate": gate, "grad_tol": GRAD_TOL,
+          **TRAIN_TOL, "dp_release_calls": calls, "step_loss": losses[0],
+          "peak_gib_gate": peak_gate, "peak_gib_step": peak_gib()})
 
 
-def lm_time(dev, smi: str, sess, shards, decode: dict, release_inputs: dict) -> dict:
-    """``lm_time``: the end-to-end training rate, steps (and tokens) per
-    second of ``sess.fit`` epochs of LM_STEPS (each draws its plan and guard
-    noise on the CPU and moves them, as a user's fit does); the kernel
-    against the plain release, the step's parts alone along the session's
-    state with the plan drawn beforehand, epochs in turns; the device's busy
-    share and top kernels over one kernel epoch of the parts; decode
-    tokens/s and prefill s from lm_decode's second run; dp_release at the LM
-    cut against its plain version, the plan it beat and its bound."""
+def lm_time(dev, smi: str, sess, shards, decode: dict, release_inputs: dict,
+            spec: LMSpec) -> dict:
+    """``<prefix>_time``: the end-to-end training rate, steps (and tokens)
+    per second of ``sess.fit`` epochs of LM_STEPS (each draws its plan and
+    guard noise on the CPU and moves them, as a user's fit does); the
+    kernel against the plain release, the step's parts alone along the
+    session's state with the plan drawn beforehand, epochs in turns; the
+    device's busy share and top kernels over ``profile_steps`` kernel steps
+    of the parts;
+    decode tokens/s and prefill s from the decode's second run; dp_release
+    at the path's cut against its plain version, the plan it beat and its
+    bound."""
+    rounds = spec.time_rounds
     fit_rates = []
-    for _ in range(LM_TIME_ROUNDS):
+    for _ in range(rounds):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sess.fit(shards, epochs=1, steps_per_epoch=LM_STEPS)
         torch.cuda.synchronize()
         fit_rates.append(LM_STEPS / (time.perf_counter() - t0))
-    plan = lm_plan(sess, shards, LM_STEPS, 7, dev)
+    plan = lm_plan(sess, shards, LM_STEPS, 7, dev, spec.seq)
     native, unravel = sess.native_state, sess.engine._unravel
     parts = {"kernel": lm_parts(sess, True), "plain": lm_parts(sess, False)}
 
-    def epoch(name):
+    def epoch(name, steps=LM_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for batch, noise in plan:
+        for batch, noise in plan[:steps]:
             g, _ = parts[name].grad(native["flat"], unravel, native["client_banks"], batch,
                                     None, noise)
             parts[name].apply(native["flat"], native["opt"], native["step"], g)
             del g
         torch.cuda.synchronize()
-        return LM_STEPS / (time.perf_counter() - t0)
+        return steps / (time.perf_counter() - t0)
 
     for name in parts:
         epoch(name)  # warm-up
     rates = {"kernel": [], "plain": []}
-    for r in range(LM_TIME_ROUNDS):
+    for r in range(rounds):
         for name in (("kernel", "plain") if r % 2 else ("plain", "kernel")):
             rates[name].append(epoch(name))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        epoch("kernel")
+        epoch("kernel", spec.profile_steps)
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev_events) / 1e3
     release_ms = sum(e.self_device_time_total for e in dev_events if "dp_release" in e.key) / 1e3
-    tokens = 3 * LM_SEQ
-    emit({"phase": "lm_time", "card": smi, "tf32": False, "config": LM_CONFIG,
-          "steps_per_epoch": LM_STEPS, "rounds": LM_TIME_ROUNDS, "tokens_per_step": tokens,
+    tokens = 3 * spec.seq
+    emit({"phase": f"{spec.prefix}_time", "card": smi, "tf32": False,
+          "config": sess.adapter.cfg.name,
+          "steps_per_epoch": LM_STEPS, "rounds": rounds, "tokens_per_step": tokens,
           "fit_steps_per_s": float(np.median(fit_rates)),
           "fit_tokens_per_s": float(np.median(fit_rates)) * tokens,
           "fit_steps_per_s_all": fit_rates,
           **{f"{k}_steps_per_s": float(np.median(v)) for k, v in rates.items()},
           **{f"{k}_tokens_per_s": float(np.median(v)) * tokens for k, v in rates.items()},
           **{f"{k}_steps_per_s_all": v for k, v in rates.items()},
-          "profiled_wall_ms": wall_ms, "device_busy_ms": busy,
-          "device_busy_share": busy / wall_ms,
-          "dp_release_device_ms_per_step": release_ms / LM_STEPS,
+          "profiled_steps": spec.profile_steps, "profiled_wall_ms": wall_ms,
+          "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+          "dp_release_device_ms_per_step": release_ms / spec.profile_steps,
           "top": [{"name": e.key[:90], "count": e.count,
                    "device_ms": e.self_device_time_total / 1e3}
                   for e in sorted(dev_events, key=lambda e: -e.self_device_time_total)[:10]],
           "decode_tokens_per_s": decode["tokens_per_s"], "decode_s": decode["decode_s"],
-          "prefill_s": decode["prefill_s"], "decode_batch": LM_DECODE[0]})
-    x, nz = release_inputs["lm_cut"]
+          "prefill_s": decode["prefill_s"], "decode_batch": spec.decode[0],
+          "peak_gib": peak_gib()})
+    x, nz = release_inputs[f"{spec.prefix}_cut"]
     sigma = DPConfig().sigma
     fns = (lambda: dp_ops.dp_release_forward(x, nz, 1.0, sigma),
            lambda: dp_release_ref(x, nz, clip_norm=1.0, sigma=sigma))
@@ -2192,8 +2511,8 @@ def lm_time(dev, smi: str, sess, shards, decode: dict, release_inputs: dict) -> 
     # release): the bound of the bytes it moves, beside the function's
     second = bound(work["bytes"] + (4 * x.numel() if rel_plan["blocks_per_row"] > 1 else 0),
                    work["flops"])
-    t = {"case": "dp_release/lm_cut", "shape": list(x.shape), "sigma": sigma, "ms": k_ms,
-         "plain_ms": p_ms, "plan": rel_plan, "other_plan": {**other, "ms": other_ms},
+    t = {"case": f"dp_release/{spec.prefix}_cut", "shape": list(x.shape), "sigma": sigma,
+         "ms": k_ms, "plain_ms": p_ms, "plan": rel_plan, "other_plan": {**other, "ms": other_ms},
          "library_ms": None, **work, "bound_share": work["bound_ms"] / k_ms,
          "bound_ms_second_read": second["bound_ms"],
          "bound_share_second_read": second["bound_ms"] / k_ms}
@@ -2201,28 +2520,87 @@ def lm_time(dev, smi: str, sess, shards, decode: dict, release_inputs: dict) -> 
     return t
 
 
-def lm_phases(dev, smi: str, release_inputs: dict, tmp: str) -> dict:
-    """The LM workload at llama3.2-1b's width, in order: ``lm_decode``,
-    ``lm_train`` (with ``lm_restore`` and ``lm_forced``; its checkpoint
-    under ``tmp``), ``lm_time`` (the LM cut's release timed on
-    ``release_inputs["lm_cut"]``) and ``lm_train_e2e``, then each phase's
-    wall seconds (``lm_wall``). Returns decode's and lm_train's results and
-    lm_time's timing row."""
+def lm_phases(dev, smi: str, release_inputs: dict, tmp: str, spec: LMSpec) -> dict:
+    """One LM path, in order: ``<prefix>_decode``, ``<prefix>_train`` (with
+    ``_restore`` and ``_forced``; its checkpoint under ``tmp``, removed
+    once restored), ``<prefix>_time`` (the path's cut's release timed on
+    ``release_inputs["<prefix>_cut"]``), ``<prefix>_remat`` where
+    ``spec.remat`` and ``lm_train_e2e`` where ``spec.e2e``, then each
+    phase's wall seconds (``<prefix>_wall``). Returns the decode's and the
+    training's results and the timing row."""
     wall = {}
     t0 = time.perf_counter()
-    decode = lm_decode(dev, smi)
-    wall["lm_decode"] = time.perf_counter() - t0
+    decode = lm_decode(dev, smi, spec)
+    wall[f"{spec.prefix}_decode"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lm = lm_train(dev, smi, tmp)
-    wall["lm_train"] = time.perf_counter() - t0
+    lm = lm_train(dev, smi, tmp, spec)
+    wall[f"{spec.prefix}_train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    timed = lm_time(dev, smi, lm.pop("session"), lm["shards"], decode, release_inputs)
-    wall["lm_time"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    lm_e2e(dev, smi, lm["shards"])
-    wall["lm_train_e2e"] = time.perf_counter() - t0
-    emit({"phase": "lm_wall", "card": smi, "phase_wall_s": wall})
+    timed = lm_time(dev, smi, lm["session"], lm["shards"], decode, release_inputs, spec)
+    wall[f"{spec.prefix}_time"] = time.perf_counter() - t0
+    if spec.remat:
+        t0 = time.perf_counter()
+        lm["remat"] = lm_remat(smi, lm["session"], lm["plan"], spec)
+        wall[f"{spec.prefix}_remat"] = time.perf_counter() - t0
+    del lm["session"], lm["plan"]
+    if spec.e2e:
+        t0 = time.perf_counter()
+        lm_e2e(dev, smi, lm["shards"], spec)
+        wall[f"{spec.prefix}_train_e2e"] = time.perf_counter() - t0
+    free_card()
+    emit({"phase": f"{spec.prefix}_wall", "card": smi, "phase_wall_s": wall})
     return {"decode": decode, "train": lm, "timed": timed}
+
+
+def hybrid_phase(dev, smi: str) -> dict:
+    """``hybrid_decode`` (``lm_decode`` of HYBRID: bit-equal twice, the CPU
+    replay with the routing gate) and ``hybrid_train``: one llm-split step's
+    gradient on the card (the release through dp_release) against the CPU
+    (the plain release), through the routing gate, then one step of the
+    session's fit (one dp_release call, a finite loss)."""
+    t0 = time.perf_counter()
+    decode = lm_decode(dev, smi, HYBRID)
+    cfg = spec_config(HYBRID)
+    shards = lm_shards(cfg, SHARES, 1, HYBRID.seq, 0)
+    free_card()
+    sess = lm_session(dev, HYBRID)
+    (batch, noise), = lm_plan(sess, shards, 1, 8, dev, HYBRID.seq)
+    native, unravel = sess.native_state, sess.engine._unravel
+    cpu_in = (native["flat"].cpu(), tree_map(lambda a: a.cpu(), native["client_banks"]),
+              {key: v.cpu() for key, v in batch.items()})
+    k, cpu, route = routed_grads(
+        lambda: lm_parts(sess, True).grad(native["flat"], unravel, native["client_banks"],
+                                          batch, None, noise),
+        lambda: lm_parts(sess, False).grad(cpu_in[0], unravel, cpu_in[1], cpu_in[2], None,
+                                           noise.cpu()),
+        "hybrid cpu")
+    gate = grad_gate((k[0].cpu(), {key: v.cpu() for key, v in k[1].items()}), cpu,
+                     "hybrid cpu")
+    reset_counts()
+    lm0 = lm_kernel_counts()
+    sess.fit(shards, epochs=1, steps_per_epoch=1)
+    torch.cuda.synchronize()
+    ran = kernel_counts()
+    launches = {**{key: v["launches"] for key, v in ran.items()},
+                **{key: v - lm0[key] for key, v in lm_kernel_counts().items()}}
+    (release,) = ran["dp_release"]["plans"]
+    calls = release["calls"]
+    losses = step_losses(sess)
+    if (calls != 1 or launches != {"privacy_conv": 0, "flash_attention": 0, "selective_scan": 0,
+                                   "dp_release": release["plan"]["launches"]}):
+        raise AssertionError(f"hybrid_train launches {ran} {launches}, want one dp_release "
+                             "call")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"hybrid_train loss {losses}")
+    layout = [cfg.layer_kind(i) + ("+moe" if cfg.layer_is_moe(i) else "")
+              for i in range(cfg.n_layers)]
+    emit({"phase": "hybrid_train", "card": smi, "config": cfg.name, "layers": layout,
+          "stack_split": list(stack_split(cfg)),
+          "d_model": cfg.d_model, "n_experts": cfg.n_experts, "seq": HYBRID.seq,
+          "gate": gate, **route, "grad_tol": GRAD_TOL, **TRAIN_TOL,
+          "dp_release_calls": calls, "launches": launches, "step_loss": losses[0],
+          "wall_s": time.perf_counter() - t0, "peak_gib": peak_gib()})
+    return {"decode": decode, "launches": launches}
 
 
 def card_line() -> str:
@@ -2292,6 +2670,7 @@ def main() -> None:
     if seen != {(k, v, n) for k in (False, True) for v in (False, True) for n in (False, True)}:
         raise AssertionError(f"dp_release plans checked {sorted(seen)}, want k = 1 and k > 1, "
                              "float4 and scalar, each with and without noise")
+    half_inputs = check_half(gen, dev, errs, sigma)
 
     # ---- serve: the main path, full-width COVID-CT CNN, kernels on
     cfg = dataclasses.replace(COVID_CNN, use_kernel=True)
@@ -2447,6 +2826,8 @@ def main() -> None:
     for t in timed.values():
         t["bound_share"] = t["bound_ms"] / t["ms"]
         emit({"phase": "time", "card": smi, **t})
+    half_timed = time_half(smi, half_inputs)
+    del half_inputs
 
     # ==== the training path: SplitSession.fit of the paper's three models
     build_dir = os.path.join(HERE, "build")
@@ -2597,10 +2978,16 @@ def main() -> None:
         t["bound_share"] = t["bound_ms"] / t["ms"]
         emit({"phase": "time", "card": smi, **t})
 
-    # ==== the LM workload at llama3.2-1b's width: decode, then split training
+    # ==== the LM workload at llama3.2-1b's, granite-moe-1b-a400m's and
+    # falcon-mamba-7b's published widths: decode, then split training; then
+    # jamba's layer pattern at reduced widths
+    del attn, attn_out, scan_in, scan_out
+    lm_paths = {}
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        lm_out = lm_phases(dev, smi, release_inputs, tmp)
-    decode, lm, lm_timed = lm_out["decode"], lm_out["train"], lm_out["timed"]
+        for prefix, spec in LM_SPECS.items():
+            lm_paths[prefix] = lm_phases(dev, smi, release_inputs, tmp, spec)
+    hybrid = hybrid_phase(dev, smi)
+    decode, lm, lm_timed = (lm_paths["lm"][k] for k in ("decode", "train", "timed"))
 
     # ---- kernels: one line for every ported kernel
     rows = [
@@ -2659,14 +3046,22 @@ def main() -> None:
                               if f"{name}/{case_}" in fed_timed["timed"] else None)
             for slice_, case_ in (("fedavg", "fedavg_local"), ("audit", "audit"))
             for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by")},
-         # the LM workload: launches on the decode and the training path
-         # (lm_decode's two runs, lm_train's 2 x 3 steps), and the LM cut
-         "launches_lm": {"lm_decode": decode["launches"][name],
-                         "lm_train": lm["launches"][name]},
-         **({f"lm_{k}": lm_timed[k] for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by",
-                                              "bound_ms_second_read")}
-            | {"lm_max_abs_err": errs["dp_release/lm_cut"], "lm_train_calls": lm["calls"]}
-            if name == "dp_release" else {})}
+         # the LM workload: launches on each path's decode and training
+         # (the decode's two runs, the training's 2 x 3 steps; the hybrid's
+         # one fit step), and each path's cut
+         "launches_lm": {f"{p}_{phase}": out[key]["launches"][name]
+                         for p, out in lm_paths.items()
+                         for phase, key in (("decode", "decode"), ("train", "train"))}
+         | {"hybrid_train": hybrid["launches"][name]},
+         **({f"{p}_{k}": out["timed"][k] for p, out in lm_paths.items()
+             for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_second_read")}
+            | {f"{p}_max_abs_err": errs[f"dp_release/{p}_cut"] for p in lm_paths}
+            | {f"{p}_train_calls": out["train"]["calls"] for p, out in lm_paths.items()}
+            if name == "dp_release" else {}),
+         # the half types (check only: the paths run float32)
+         "half": [{k: t[k] for k in ("case", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
+                                     "max_ulps")}
+                  for case, t in half_timed.items() if case.startswith(name + "/")]}
         for name, src, rep_line, case, t, counts in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

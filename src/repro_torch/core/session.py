@@ -155,13 +155,26 @@ class _Engine:
                     self.device)
 
 
+def check_unroll(unroll) -> int:
+    """``unroll`` as the reference's ``lax.scan`` takes it: a bool or an int
+    of at least 0, else the ``ValueError`` that ``lax.scan`` raises."""
+    if not isinstance(unroll, (bool, int)) or unroll < 0:
+        raise ValueError(f"`unroll` must be a `bool` or a non-negative `int`, got {unroll!r}")
+    return unroll
+
+
 class FusedEngine(_Engine):
     """The fused engine: stacked banks, one flat trainable buffer, epochs of
-    ``make_epoch_runner`` steps. Native state IS the canonical state."""
+    ``make_epoch_runner`` steps. Native state IS the canonical state.
+    ``unroll`` is the reference's option (8 by default), checked as its
+    ``lax.scan`` checks it and kept: an epoch here is a Python loop, which
+    has nothing to unroll, so it changes no arithmetic."""
 
-    def __init__(self, adapter, tc, opt, *, device=None, mode: Optional[str] = None):
+    def __init__(self, adapter, tc, opt, *, device=None, mode: Optional[str] = None,
+                 unroll: int = 8):
         if mode not in (None, "scan", "stepwise"):
             raise ValueError(f"mode must be None, 'scan' or 'stepwise', got {mode!r}")
+        self.unroll = check_unroll(unroll)
         super().__init__(adapter, tc, opt, device)
         self.name = "auto" if mode is None else f"fused-{mode}"
         self.mode = mode or "scan"
@@ -520,13 +533,16 @@ class FusedQueueEngine(ProtocolEngine):
     on the device. Checkpoints interchange with protocol-async's.
     ``steps_per_epoch`` is only the bank's chunk size (the step counter and
     the clients' seed base are absolute); one epoch's releases live on the
-    device at once. The reference's ``unroll`` has no counterpart: the
-    replay is a loop."""
+    device at once. ``unroll`` is the reference's option (1 by default),
+    checked as its ``lax.scan`` checks it and kept: the replay is a Python
+    loop, which has nothing to unroll, so it changes no arithmetic."""
 
     name = "fused-queue"
     _client_as_numpy = False
 
-    def __init__(self, adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, **kw):
+    def __init__(self, adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, *,
+                 unroll: int = 1, **kw):
+        self.unroll = check_unroll(unroll)
         super().__init__(adapter, tc, opt, **kw)
         self._run_bank = make_server_bank_runner(adapter, opt, tc.grad_clip,
                                                  step_fn=self._server_step)

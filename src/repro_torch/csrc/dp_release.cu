@@ -7,8 +7,11 @@
 //   out[r,k] = x[r,k] * scale + sigma * noise[r,k]   (noise read only if sigma > 0)
 // The scale is the formula of src/repro/kernels/dp_release/ref.py:20-23, its
 // rsqrt written as an IEEE division and square root; kernel.py:31-32 agrees
-// with it within an ulp. float32 in and out. As on the TPU, the unclipped
-// row is never written: only the release leaves the kernel.
+// with it within an ulp. As on the TPU kernel (kernel.py:29-36), x and the
+// noise are float32, bfloat16 or float16, each element is converted to
+// float32 on load, every sum is float32, and the release is stored in x's
+// dtype (rounded to nearest even). As on the TPU, the unclipped row is
+// never written: only the release leaves the kernel.
 //
 // What bounds it on an H100: a few flops per element against 8 bytes read
 // (12 with noise) and 4 written, so bytes. The row is read twice (once for
@@ -27,8 +30,11 @@
 // all of them, and every relaunch, get the same bits of n2, then write its
 // chunk. Within a block the sum is a fixed tree (each thread's strided
 // terms in order, warp shuffles, then the 16 warp sums), so a relaunch is
-// bit-identical. Loads and stores are float4 when F % 4 == 0 (and each chunk
-// starts on a multiple of 4), else scalar. The kernel allocates nothing.
+// bit-identical. float32 loads and stores are float4 when F % 4 == 0 (and
+// each chunk starts on a multiple of 4), else scalar; the 2-byte types take
+// the scalar path. The kernel allocates nothing.
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -36,6 +42,19 @@
 namespace {
 
 constexpr int kThreads = 512;
+
+// an element as float32, and a float32 back in the element's type
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
+}
 
 // The block's total of `s`, the same bits in every thread: each warp
 // reduces by shuffles, then every warp reduces the 16 warp sums in the same
@@ -52,13 +71,13 @@ __device__ __forceinline__ float block_sum(float s, float* warp_sums) {
   return t;
 }
 
-// This thread's part of sum x^2 over xr[begin, end); with VEC4 both ends
-// are multiples of 4. Four loads in flight a thread.
-template <bool VEC4>
-__device__ __forceinline__ float chunk_sumsq(const float* __restrict__ xr, long long begin,
+// This thread's part of sum x^2 over xr[begin, end); with VEC4 (float32
+// only) both ends are multiples of 4. Four loads in flight a thread.
+template <typename T, bool VEC4>
+__device__ __forceinline__ float chunk_sumsq(const T* __restrict__ xr, long long begin,
                                              long long end) {
   float s = 0.f;
-  if (VEC4) {
+  if constexpr (VEC4) {
     const float4* x4 = reinterpret_cast<const float4*>(xr + begin);
     const long long n = (end - begin) / 4;
     long long i = threadIdx.x;
@@ -83,7 +102,7 @@ __device__ __forceinline__ float chunk_sumsq(const float* __restrict__ xr, long 
     }
   } else {
     for (long long i = begin + threadIdx.x; i < end; i += kThreads) {
-      const float v = xr[i];
+      const float v = to_f(xr[i]);
       s = fmaf(v, v, s);
     }
   }
@@ -96,12 +115,12 @@ __device__ __forceinline__ float row_scale(float n2, float clip_norm) {
 
 // out[k] = x[k] * scale (+ sigma * noise[k]) over [begin, end) of a row;
 // the noise is read only when sigma > 0.
-template <bool VEC4>
-__device__ __forceinline__ void chunk_apply(const float* __restrict__ xr,
-                                            const float* __restrict__ nr,
-                                            float* __restrict__ orow, long long begin,
+template <typename T, bool VEC4>
+__device__ __forceinline__ void chunk_apply(const T* __restrict__ xr,
+                                            const T* __restrict__ nr,
+                                            T* __restrict__ orow, long long begin,
                                             long long end, float scale, float sigma) {
-  if (VEC4) {
+  if constexpr (VEC4) {
     const float4* x4 = reinterpret_cast<const float4*>(xr + begin);
     float4* o4 = reinterpret_cast<float4*>(orow + begin);
     const long long n = (end - begin) / 4;
@@ -120,42 +139,43 @@ __device__ __forceinline__ void chunk_apply(const float* __restrict__ xr,
     }
   } else if (sigma > 0.f) {
     for (long long i = begin + threadIdx.x; i < end; i += kThreads)
-      orow[i] = xr[i] * scale + sigma * nr[i];
+      orow[i] = from_f<T>(to_f(xr[i]) * scale + sigma * to_f(nr[i]));
   } else {
-    for (long long i = begin + threadIdx.x; i < end; i += kThreads) orow[i] = xr[i] * scale;
+    for (long long i = begin + threadIdx.x; i < end; i += kThreads)
+      orow[i] = from_f<T>(to_f(xr[i]) * scale);
   }
 }
 
 // k = 1: block r owns row r.
-template <bool VEC4>
+template <typename T, bool VEC4>
 __global__ void __launch_bounds__(kThreads)
-dp_release_rows(const float* __restrict__ x, const float* __restrict__ noise,
-                float* __restrict__ out, long long F, float clip_norm, float sigma) {
+dp_release_rows(const T* __restrict__ x, const T* __restrict__ noise,
+                T* __restrict__ out, long long F, float clip_norm, float sigma) {
   __shared__ float warp_sums[kThreads / 32];
   const long long base = (long long)blockIdx.x * F;
-  const float n2 = block_sum(chunk_sumsq<VEC4>(x + base, 0, F), warp_sums);
-  chunk_apply<VEC4>(x + base, noise ? noise + base : nullptr, out + base, 0, F,
+  const float n2 = block_sum(chunk_sumsq<T, VEC4>(x + base, 0, F), warp_sums);
+  chunk_apply<T, VEC4>(x + base, noise ? noise + base : nullptr, out + base, 0, F,
                     row_scale(n2, clip_norm), sigma);
 }
 
 // k > 1, first launch: partials[r, j] = sum of x^2 over chunk j of row r.
-template <bool VEC4>
+template <typename T, bool VEC4>
 __global__ void __launch_bounds__(kThreads)
-dp_release_partials(const float* __restrict__ x, float* __restrict__ partials, long long F,
+dp_release_partials(const T* __restrict__ x, float* __restrict__ partials, long long F,
                     long long chunk) {
   __shared__ float warp_sums[kThreads / 32];
   const long long r = blockIdx.y, begin = (long long)blockIdx.x * chunk;
   const long long end = begin + chunk < F ? begin + chunk : F;
-  const float s = block_sum(chunk_sumsq<VEC4>(x + r * F, begin, end), warp_sums);
+  const float s = block_sum(chunk_sumsq<T, VEC4>(x + r * F, begin, end), warp_sums);
   if (threadIdx.x == 0) partials[r * gridDim.x + blockIdx.x] = s;
 }
 
 // k > 1, second launch: n2 of row r is its k partials added in the order
 // 0 .. k-1 (by every thread: the same bits everywhere), then chunk j.
-template <bool VEC4>
+template <typename T, bool VEC4>
 __global__ void __launch_bounds__(kThreads)
-dp_release_scaled(const float* __restrict__ x, const float* __restrict__ noise,
-                  float* __restrict__ out, const float* __restrict__ partials, long long F,
+dp_release_scaled(const T* __restrict__ x, const T* __restrict__ noise,
+                  T* __restrict__ out, const float* __restrict__ partials, long long F,
                   long long chunk, float clip_norm, float sigma) {
   const long long r = blockIdx.y, begin = (long long)blockIdx.x * chunk;
   const long long end = begin + chunk < F ? begin + chunk : F;
@@ -163,24 +183,24 @@ dp_release_scaled(const float* __restrict__ x, const float* __restrict__ noise,
   float n2 = 0.f;
   for (unsigned j = 0; j < gridDim.x; ++j) n2 += pr[j];
   const long long base = r * F;
-  chunk_apply<VEC4>(x + base, noise ? noise + base : nullptr, out + base, begin, end,
+  chunk_apply<T, VEC4>(x + base, noise ? noise + base : nullptr, out + base, begin, end,
                     row_scale(n2, clip_norm), sigma);
 }
 
-template <bool VEC4>
-int launch(const float* x, const float* noise, float* out, float* partials, long long B,
+template <typename T, bool VEC4>
+int launch(const T* x, const T* noise, T* out, float* partials, long long B,
            long long F, float clip_norm, float sigma, int k, long long chunk,
            cudaStream_t stream) {
   if (k == 1) {
-    dp_release_rows<VEC4><<<(unsigned)B, kThreads, 0, stream>>>(x, noise, out, F, clip_norm,
+    dp_release_rows<T, VEC4><<<(unsigned)B, kThreads, 0, stream>>>(x, noise, out, F, clip_norm,
                                                                  sigma);
     return (int)cudaGetLastError();
   }
   const dim3 grid((unsigned)k, (unsigned)B);
-  dp_release_partials<VEC4><<<grid, kThreads, 0, stream>>>(x, partials, F, chunk);
+  dp_release_partials<T, VEC4><<<grid, kThreads, 0, stream>>>(x, partials, F, chunk);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  dp_release_scaled<VEC4><<<grid, kThreads, 0, stream>>>(x, noise, out, partials, F, chunk,
+  dp_release_scaled<T, VEC4><<<grid, kThreads, 0, stream>>>(x, noise, out, partials, F, chunk,
                                                          clip_norm, sigma);
   return (int)cudaGetLastError();
 }
@@ -190,22 +210,42 @@ int launch(const float* x, const float* noise, float* out, float* partials, long
 // Launches the plan on `stream` and returns cudaGetLastError(): non-zero
 // when a launch was refused, or cudaErrorInvalidValue when the plan does not
 // fit the shape (its k chunks of `chunk` features must cover F, the last one
-// non-empty; float4 needs F and chunk multiples of 4 and 16-byte aligned
-// tensors; k > 1 needs `partials` [B, k] and B <= 65535). `noise` may be
-// null when sigma is 0, and is not read then.
-extern "C" int dp_release_launch_plan(const float* x, const float* noise, float* out,
-                                      float* partials, long long B, long long F,
-                                      float clip_norm, float sigma, int k, long long chunk,
-                                      int vec4, void* stream) {
+// non-empty; float4 needs float32, F and chunk multiples of 4 and 16-byte
+// aligned tensors; k > 1 needs `partials` [B, k] float32 and B <= 65535) or
+// `dtype` is none of 0 (float32), 1 (bfloat16), 2 (float16): the type of x,
+// the noise and out alike. `noise` may be null when sigma is 0, and is not
+// read then.
+extern "C" int dp_release_launch_plan_typed(const void* x, const void* noise, void* out,
+                                            float* partials, long long B, long long F,
+                                            float clip_norm, float sigma, int k,
+                                            long long chunk, int vec4, int dtype,
+                                            void* stream) {
   if (B == 0 || F == 0) return 0;
   if (sigma <= 0.f) noise = nullptr;
   const uintptr_t addr = (uintptr_t)x | (uintptr_t)out | (uintptr_t)noise;
   const bool covers = k >= 1 && chunk >= 1 && chunk * k >= F && chunk * (k - 1) < F;
-  const bool aligned = !vec4 || (F % 4 == 0 && chunk % 4 == 0 && addr % 16 == 0);
+  const bool aligned =
+      !vec4 || (dtype == 0 && F % 4 == 0 && chunk % 4 == 0 && addr % 16 == 0);
   const bool split_ok = k == 1 || (partials != nullptr && B <= 65535);
-  if (!covers || !aligned || !split_ok || (sigma > 0.f && noise == nullptr))
+  if (!covers || !aligned || !split_ok || (sigma > 0.f && noise == nullptr) || dtype < 0 ||
+      dtype > 2)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  return vec4 ? launch<true>(x, noise, out, partials, B, F, clip_norm, sigma, k, chunk, s)
-              : launch<false>(x, noise, out, partials, B, F, clip_norm, sigma, k, chunk, s);
+#define DP_RELEASE_LAUNCH(T, V)                                                             \
+  launch<T, V>(static_cast<const T*>(x), static_cast<const T*>(noise), static_cast<T*>(out), \
+               partials, B, F, clip_norm, sigma, k, chunk, s)
+  if (dtype == 1) return DP_RELEASE_LAUNCH(__nv_bfloat16, false);
+  if (dtype == 2) return DP_RELEASE_LAUNCH(__half, false);
+  return vec4 ? DP_RELEASE_LAUNCH(float, true) : DP_RELEASE_LAUNCH(float, false);
+#undef DP_RELEASE_LAUNCH
+}
+
+// The float32 entry point of the interface before the typed one: the typed
+// launch with dtype 0.
+extern "C" int dp_release_launch_plan(const float* x, const float* noise, float* out,
+                                      float* partials, long long B, long long F,
+                                      float clip_norm, float sigma, int k, long long chunk,
+                                      int vec4, void* stream) {
+  return dp_release_launch_plan_typed(x, noise, out, partials, B, F, clip_norm, sigma, k,
+                                      chunk, vec4, 0, stream);
 }

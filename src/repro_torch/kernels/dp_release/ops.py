@@ -11,8 +11,10 @@ gets no gradient. ``launches`` counts kernel launches (one a call, or the
 two of a split row) and ``plans`` the calls of each plan (keyed by its
 sorted items), both updated by :func:`count` under a lock, since client
 threads may launch at once. :func:`release_plan` chooses how a shape runs
-from the shape and the card's SM count alone, so every branch can be tested
-on the CPU and named in a report.
+from the shape, the element type and the card's SM count alone, so every
+branch can be tested on the CPU and named in a report. The kernel takes
+float32, bfloat16 or float16 (:data:`DTYPES`; x and the noise of one type),
+sums in float32 and stores the release in x's type, as the TPU kernel does.
 """
 from __future__ import annotations
 
@@ -33,13 +35,17 @@ _count_lock = threading.Lock()
 
 THREADS = 512        # a block; fixed in the source
 MIN_CHUNK = 16384    # features a block sums at least when a row is split
+# the element types the kernel takes, by the code its typed entry point reads
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @functools.cache
-def release_plan(rows: int, feats: int, sm_count: int, aligned: bool = True) -> dict:
+def release_plan(rows: int, feats: int, sm_count: int, aligned: bool = True,
+                 dtype: str = "float32") -> dict:
     """How ``csrc/dp_release.cu`` runs ``rows`` rows of ``feats`` features
-    on a card of ``sm_count`` SMs, a pure function of them, worked out once
-    a shape (the dict is shared: copy it to change it):
+    of type ``dtype`` (``"float32"``, ``"bfloat16"``, ``"float16"``) on a
+    card of ``sm_count`` SMs, a pure function of them, worked out once a
+    shape (the dict is shared: copy it to change it):
 
     - ``blocks_per_row`` k: 1 where the rows alone fill the SMs, or where a
       row has too few features to split (under ``2 * MIN_CHUNK``); else
@@ -48,12 +54,17 @@ def release_plan(rows: int, feats: int, sm_count: int, aligned: bool = True) -> 
       then the release), k = 1 one.
     - ``chunk``: features of each block's part of a row, k of them cover
       the row once (the last may be shorter); a multiple of 4 with float4.
-    - ``vec4``: float4 loads and stores, only when ``feats % 4 == 0`` and
-      the tensors are 16-byte aligned (``aligned``); else scalar.
+    - ``vec4``: float4 loads and stores, only for float32 where
+      ``feats % 4 == 0`` and the tensors are 16-byte aligned (``aligned``);
+      else scalar. A 2-byte type always loads and stores element by
+      element, with the same k and chunks as float32 (they count elements).
+    - ``dtype``: the element type, as given.
     """
     if rows < 0 or feats < 0 or sm_count < 1:
         raise ValueError(f"no plan for {rows} rows of {feats} on {sm_count} SMs")
-    vec4 = feats % 4 == 0 and aligned
+    if dtype not in ("float32", "bfloat16", "float16"):
+        raise ValueError(f"no plan for dtype {dtype!r}")
+    vec4 = feats % 4 == 0 and aligned and dtype == "float32"
     k = 1
     if 0 < rows < sm_count:
         k = max(1, min(-(-sm_count // rows), feats // MIN_CHUNK))
@@ -63,7 +74,7 @@ def release_plan(rows: int, feats: int, sm_count: int, aligned: bool = True) -> 
     if chunk:
         k = -(-feats // chunk)
     return {"blocks_per_row": k, "chunk": chunk, "vec4": vec4, "threads": THREADS,
-            "launches": 1 if k == 1 else 2}
+            "launches": 1 if k == 1 else 2, "dtype": dtype}
 
 
 @functools.cache
@@ -74,11 +85,12 @@ def _sm_count(index: int) -> int:
 
 def plan_for(x: torch.Tensor, noise: Optional[torch.Tensor], sigma: float) -> dict:
     """The plan :func:`_launch` runs for these CUDA tensors: the card's SM
-    count, and float4 where ``x`` and the noise it reads are 16-byte aligned
-    (the output is a fresh allocation, which is)."""
+    count, x's type, and float4 where ``x`` and the noise it reads are
+    16-byte aligned (the output is a fresh allocation, which is)."""
     read = [x] + ([noise] if sigma > 0.0 else [])
     return release_plan(x.shape[0], math.prod(x.shape[1:]), _sm_count(x.device.index),
-                        all(t.data_ptr() % 16 == 0 for t in read))
+                        all(t.data_ptr() % 16 == 0 for t in read),
+                        str(x.dtype).removeprefix("torch."))
 
 
 def count(plan: dict) -> None:
@@ -90,21 +102,31 @@ def count(plan: dict) -> None:
         plans[tuple(sorted(plan.items()))] += 1
 
 
-def _launch(x, noise, clip_norm: float, sigma: float,
-            plan: Optional[dict] = None) -> torch.Tensor:
-    """The kernel on CUDA tensors, with :func:`plan_for`'s plan unless
-    ``plan`` is given (to time one plan against another); the source
-    refuses a plan that does not fit the shape."""
+def check_inputs(x: torch.Tensor, noise: Optional[torch.Tensor], sigma: float) -> None:
+    """Raise unless the kernel takes these tensors: x ``[B, ...]``, and
+    where ``sigma > 0`` noise of x's shape, type and device; both
+    contiguous, of one of :data:`DTYPES`."""
     if x.dim() < 1:
         raise ValueError("dp_release wants x [B, ...]")
     use_noise = sigma > 0.0
     if use_noise and tuple(noise.shape) != tuple(x.shape):
         raise ValueError(f"noise {tuple(noise.shape)} != x {tuple(x.shape)}")
     for t in [x] + ([noise] if use_noise else []):
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("dp_release kernel takes contiguous float32 tensors "
-                             f"on one CUDA device; got {t.dtype} on {t.device}, "
+        if (t.device != x.device or t.dtype != x.dtype or t.dtype not in DTYPES
+                or not t.is_contiguous()):
+            raise ValueError("dp_release kernel takes contiguous float32, bfloat16 or "
+                             "float16 tensors of one type on one CUDA device; got "
+                             f"{t.dtype} on {t.device} beside x's {x.dtype}, "
                              f"contiguous={t.is_contiguous()}")
+
+
+def _launch(x, noise, clip_norm: float, sigma: float,
+            plan: Optional[dict] = None) -> torch.Tensor:
+    """The kernel on CUDA tensors, with :func:`plan_for`'s plan unless
+    ``plan`` is given (to time one plan against another); the source
+    refuses a plan that does not fit the shape."""
+    check_inputs(x, noise, sigma)
+    use_noise = sigma > 0.0
     rows = x.shape[0]
     feats = math.prod(x.shape[1:])
     lib = build.library("dp_release")
@@ -115,10 +137,11 @@ def _launch(x, noise, clip_norm: float, sigma: float,
     partials = torch.empty((rows, k), device=x.device, dtype=torch.float32) if k > 1 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dp_release_launch_plan(
+        err = lib.dp_release_launch_plan_typed(
             x.data_ptr(), noise.data_ptr() if use_noise else None, out.data_ptr(),
             partials.data_ptr() if partials is not None else None, rows, feats,
-            float(clip_norm), float(sigma), k, plan["chunk"], int(plan["vec4"]), stream)
+            float(clip_norm), float(sigma), k, plan["chunk"], int(plan["vec4"]),
+            DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError(f"dp_release kernel launch failed: CUDA error {err}")
     count(plan)

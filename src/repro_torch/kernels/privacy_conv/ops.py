@@ -12,13 +12,16 @@ forward runs the kernel, the backward recomputes through the plain version.
 through the kernel and with which variant; client threads launch at once,
 so :func:`count` updates both under a lock. :func:`conv_plan` chooses the
 kernel's variant from the shapes alone, so every branch can be tested on
-the CPU and named in a report.
+the CPU and named in a report. The unbanked kernel takes float32, bfloat16
+or float16 (:data:`DTYPES`; x, w, b and the noise of one type), sums in
+float32 and stores the output in x's type, as the TPU kernel does.
 
 :func:`privacy_conv_banked_forward` is the fleet's layer: N queue items of
 b images, each with its own client's bank, in one launch of the same
 kernel (the counterpart of ``jax.vmap`` over the Pallas call in
 ``repro/core/protocol.py:89-101``), bit for bit what N unbanked launches
-give; its plain version is ``ref.privacy_conv_banked_ref``.
+give; its plain version is ``ref.privacy_conv_banked_ref``. It takes
+float32 alone (the fleet's releases are float32).
 """
 from __future__ import annotations
 
@@ -42,18 +45,25 @@ TILE = (8, 8)          # pooled pixels a block (rows, columns); fixed in the sou
 CHANNELS_PER_THREAD = 4
 MAX_CHANNELS_PER_BLOCK = 16
 CIN_VARIANTS = (1,)  # the input widths with a variant of their own; any other is generic
+# the element types the kernel takes, by the code its typed entry point reads
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 @functools.cache
-def conv_plan(B: int, H: int, W: int, cin: int, cout: int, aligned: bool = True) -> dict:
-    """How ``csrc/privacy_conv.cu`` runs a shape, a pure function of it,
+def conv_plan(B: int, H: int, W: int, cin: int, cout: int, aligned: bool = True,
+              dtype: str = "float32") -> dict:
+    """How ``csrc/privacy_conv.cu`` runs a shape of element type ``dtype``
+    (``"float32"``, ``"bfloat16"``, ``"float16"``), a pure function of them,
     worked out once a shape (the dict is shared: copy it to change it):
 
     - ``cin_variant``: 1 (unrolled, the COVID-CT stage) or 0 (generic,
       staging 16 input channels at a time);
-    - ``vec4``: float4 noise reads and output writes, only when
-      ``cout % 4 == 0`` and the output and noise are 16-byte aligned
-      (``aligned``); else element by element;
+    - ``vec4``: float4 noise reads and output writes, only for float32
+      where ``cout % 4 == 0`` and the output and noise are 16-byte aligned
+      (``aligned``); else element by element. A 2-byte type always reads
+      and writes element by element; its variant, tile and channel blocks
+      are float32's (they count elements);
+    - ``dtype``: the element type, as given;
     - ``channels_per_block``: output channels a block, 4 a thread, at most 16;
     - ``threads``, ``blocks``: one thread per pooled pixel of a
       ``TILE`` and channel group; blocks over images, tiles and channel
@@ -62,15 +72,18 @@ def conv_plan(B: int, H: int, W: int, cin: int, cout: int, aligned: bool = True)
     if min(B, H, W) < 0 or cin < 1 or cout < 1 or H % 2 or W % 2:
         raise ValueError(f"no plan for B={B}, H={H}, W={W}, Cin={cin}, Cout={cout}: "
                          "want Cin, Cout >= 1 and even H, W")
+    if dtype not in ("float32", "bfloat16", "float16"):
+        raise ValueError(f"no plan for dtype {dtype!r}")
     groups = -(-cout // CHANNELS_PER_THREAD)
     per_block = min(groups, MAX_CHANNELS_PER_BLOCK // CHANNELS_PER_THREAD)
     tiles = -(-(H // 2) // TILE[0]) * -(-(W // 2) // TILE[1])
     return {"cin_variant": cin if cin in CIN_VARIANTS else 0,
-            "vec4": cout % 4 == 0 and aligned,
+            "vec4": cout % 4 == 0 and aligned and dtype == "float32",
             "tile": TILE,
             "channels_per_block": CHANNELS_PER_THREAD * per_block,
             "threads": TILE[0] * TILE[1] * per_block,
-            "blocks": B * tiles * -(-groups // per_block)}
+            "blocks": B * tiles * -(-groups // per_block),
+            "dtype": dtype}
 
 
 def plan_for(x: torch.Tensor, w: torch.Tensor, noise: Optional[torch.Tensor],
@@ -81,7 +94,8 @@ def plan_for(x: torch.Tensor, w: torch.Tensor, noise: Optional[torch.Tensor],
     N*b images, with ``"banked": True``."""
     *lead, H, W, cin = x.shape
     aligned = noise_scale <= 0.0 or noise.data_ptr() % 16 == 0
-    plan = conv_plan(math.prod(lead), H, W, cin, w.shape[-1], aligned)
+    plan = conv_plan(math.prod(lead), H, W, cin, w.shape[-1], aligned,
+                     str(x.dtype).removeprefix("torch."))
     return {**plan, "banked": True} if len(lead) == 2 else plan
 
 
@@ -94,12 +108,17 @@ def count(plan: dict) -> None:
         plans[tuple(sorted(plan.items()))] += 1
 
 
-def _check_inputs(tensors, x) -> None:
+def check_inputs(tensors, x, dtypes=tuple(DTYPES)) -> None:
+    """Raise unless every tensor is contiguous, on x's device and of x's
+    type, one of ``dtypes`` (the unbanked kernel's :data:`DTYPES`, the
+    banked one's float32)."""
     for t in tensors:
-        if t.device != x.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError("privacy_conv kernel takes contiguous float32 tensors "
-                             f"on one CUDA device; got {t.dtype} on {t.device}, "
-                             f"contiguous={t.is_contiguous()}")
+        if (t.device != x.device or t.dtype != x.dtype or t.dtype not in dtypes
+                or not t.is_contiguous()):
+            names = ", ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise ValueError(f"privacy_conv kernel takes contiguous tensors of one type "
+                             f"({names}) on one CUDA device; got {t.dtype} on {t.device} "
+                             f"beside x's {x.dtype}, contiguous={t.is_contiguous()}")
 
 
 def _launch(x, w, b, noise, noise_scale: float, plan: Optional[dict] = None) -> torch.Tensor:
@@ -121,18 +140,18 @@ def _launch(x, w, b, noise, noise_scale: float, plan: Optional[dict] = None) -> 
     tensors = [x, w, b] + ([noise] if use_noise else [])
     if use_noise and tuple(noise.shape) != out_shape:
         raise ValueError(f"noise {tuple(noise.shape)} != output {out_shape}")
-    _check_inputs(tensors, x)
+    check_inputs(tensors, x)
     lib = build.library("privacy_conv")
-    out = torch.empty(out_shape, device=x.device, dtype=torch.float32)
+    out = torch.empty(out_shape, device=x.device, dtype=x.dtype)
     if plan is None:
         plan = plan_for(x, w, noise, noise_scale)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.privacy_conv_launch_plan(
+        err = lib.privacy_conv_launch_plan_typed(
             x.data_ptr(), w.data_ptr(), b.data_ptr(),
             noise.data_ptr() if use_noise else None, out.data_ptr(),
             B, H, W, cin, cout, float(noise_scale), plan["cin_variant"],
-            plan["channels_per_block"], int(plan["vec4"]), stream)
+            plan["channels_per_block"], int(plan["vec4"]), DTYPES[x.dtype], stream)
     if err:
         raise RuntimeError(f"privacy_conv kernel launch failed: CUDA error {err}")
     count(plan)
@@ -161,7 +180,7 @@ def _launch_banked(x, w, b, cids, noise, noise_scale: float,
     use_noise = noise_scale > 0.0
     if use_noise and tuple(noise.shape) != out_shape:
         raise ValueError(f"noise {tuple(noise.shape)} != output {out_shape}")
-    _check_inputs([x, w, b] + ([noise] if use_noise else []), x)
+    check_inputs([x, w, b] + ([noise] if use_noise else []), x, (torch.float32,))
     if not cids.is_contiguous():
         raise ValueError("cids must be contiguous")
     lib = build.library("privacy_conv")

@@ -9,8 +9,12 @@ decoding against preallocated KV caches, prefilling by replaying the prompt
 through ``serve_step`` so that prefill and decode share one cache layout.
 ``--smoke`` asserts the decode step's shape and dtype at every step and that
 greedy decoding (temperature 0) is deterministic: two runs give bit-equal
-token streams. ``--device`` (the port's addition) picks the device; the
-default is the card.
+token streams. Like the reference's, it builds the named config at full
+size. Every family decodes: an attention layer against its KV cache, a
+mamba layer against its conv ring and SSM state, a MoE layer routing the
+step's tokens. Two options are the port's additions: ``--device`` picks the
+device (the default is the card), and ``--reduced`` runs the arch's
+``reduced()`` config, which a 7B arch needs on a CPU.
 
 Sampling above temperature 0 draws Gumbel noise from a CPU
 ``torch.Generator`` seeded with ``--seed`` (the reference folds the step
@@ -54,6 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--temperature", type=float, default=0.8)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="torch device (default: the card)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="run the arch's reduced() config (2-4 layers, d_model <= 256)")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny CI run: assert decode shape/dtype stability "
                          "and greedy determinism at temperature 0")
@@ -133,6 +139,8 @@ def prefill_and_decode(cfg, params, prompts: torch.Tensor, *, gen: int,
 
 def _model(args):
     cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
     assert not cfg.is_encoder_only, "encoder-only archs have no decode step"
     device = resolve_device(args.device)
     params = model_lib.init_model(seeded_generator(args.seed), cfg, torch.float32, device)

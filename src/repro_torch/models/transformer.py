@@ -1,14 +1,14 @@
-"""The decoder/encoder stack of the attention-only families, as
+"""The decoder/encoder stack of every family, as
 ``repro.models.transformer``:
 
-  dense : [attn + SwiGLU] x L
-  audio : encoder-only (bidirectional) attention over stub frame
-          embeddings (hubert)
-  vlm   : the dense decoder over stub patch embeddings + tokens (internvl2)
-
-The reference's ``moe``, ``ssm`` and ``hybrid`` families (MoE and Mamba
-layers) are not ported yet: a config that needs either raises a
-``ValueError``.
+  dense  : [attn + SwiGLU] x L
+  moe    : [attn + MoE] x L (granite, mixtral)
+  ssm    : [mamba1] x L (falcon-mamba)
+  hybrid : period groups of one attention and mamba layers, each with an
+           FFN, MoE every ``moe_period``-th layer (jamba)
+  audio  : encoder-only (bidirectional) attention over stub frame
+           embeddings (hubert)
+  vlm    : the dense decoder over stub patch embeddings + tokens (internvl2)
 
 The layout is the reference's, so ``common.bridge.to_torch`` carries its
 parameters over unchanged: dense weights ``[in, out]``, the client
@@ -17,7 +17,10 @@ layer) and the server (``prefix`` blocks, the scanned ``groups`` with every
 leaf stacked ``[n_groups, ...]`` under ``pos{p}``, the final norm and an
 untied head). The reference scans the groups; here a Python loop over g
 indexes the stacked leaves, so autograd accumulates into the stacked
-tensors. The reference's sharding annotations are the identity without a
+tensors; with ``ModelOptions.remat`` each group's body runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
+scanned body), so a group's activations are recomputed in the backward
+pass. The reference's sharding annotations are the identity without a
 mesh and have no counterpart.
 """
 from __future__ import annotations
@@ -26,38 +29,37 @@ import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.tree import tree_map
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import dense_init, embed_init, init_swiglu, rms_norm, swiglu
 
-PORTED_FAMILIES = ("dense", "audio", "vlm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelOptions:
     """Execution knobs (perf levers); the model's math is the same across
-    their values. The reference's ``associative_scan``, ``moe_chunks`` and
-    ``remat`` steer layers and a scan the port does not have yet; each
-    comes with the slice that first reads it."""
+    their values: ``associative_scan`` (the SSM's parallel-prefix scan, its
+    sums in another order), ``remat`` (each group recomputed in the
+    backward pass; the same gradient, bit for bit) and ``moe_chunks`` (each
+    of that many token chunks dispatched on its own, as the reference's
+    path without a mesh)."""
 
     q_block: int = 1024
     kv_block: int = 1024
     skip_masked_blocks: bool = False  # causal two-phase FLOP skip (fwd-only)
     bf16_probs: bool = False  # bf16 attention probabilities for the PV matmul
+    associative_scan: bool = False  # parallel-prefix SSM scan
+    remat: bool = False  # checkpoint each group in the backward pass
     detach_cut: bool = True  # the paper's temporal split: no grads into the client
     logits_f32: bool = True
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    """Raise for a config whose layers need MoE or SSM, not ported yet."""
-    if cfg.family not in PORTED_FAMILIES or cfg.n_experts > 0:
-        raise ValueError(
-            f"{cfg.name} ({cfg.family}) needs MoE or SSM layers; the port has the "
-            f"attention-only families {PORTED_FAMILIES}, and the MoE and SSM layers "
-            "come in the next slice")
+    moe_chunks: int = 1  # per-chunk MoE dispatch
 
 
 # ---------------------------------------------------------------- structure
@@ -86,14 +88,26 @@ def stack_split(cfg: ModelConfig) -> Tuple[int, int, int]:
 # ------------------------------------------------------------------- init
 def init_block(generator: torch.Generator, cfg: ModelConfig, layer_idx: int,
                dtype: torch.dtype) -> Dict[str, Any]:
-    require_ported(cfg)
+    """Global layer ``layer_idx``'s block: attention or a mamba mixer by
+    ``cfg.layer_kind``, then an FFN where the reference has one (every
+    attention layer, and every hybrid layer, with ``d_ff > 0``), a MoE where
+    ``cfg.layer_is_moe``."""
     dev = generator.device
     ones = lambda: torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)  # noqa: E731
-    p: Dict[str, Any] = {"attn_norm": ones(),
-                         "attn": attn_mod.init_attention(generator, cfg, dtype)}
-    if cfg.d_ff > 0:
+    kind = cfg.layer_kind(layer_idx)
+    p: Dict[str, Any] = {}
+    if kind == "attn":
+        p["attn_norm"] = ones()
+        p["attn"] = attn_mod.init_attention(generator, cfg, dtype)
+    else:
+        p["ssm_norm"] = ones()
+        p["ssm"] = ssm_mod.init_ssm(generator, cfg, dtype)
+    if (kind == "attn" or cfg.family == "hybrid") and cfg.d_ff > 0:
         p["ffn_norm"] = ones()
-        p["mlp"] = init_swiglu(generator, cfg.d_model, cfg.d_ff, dtype)
+        if cfg.layer_is_moe(layer_idx):
+            p["moe"] = moe_mod.init_moe(generator, cfg, dtype)
+        else:
+            p["mlp"] = init_swiglu(generator, cfg.d_model, cfg.d_ff, dtype)
     return p
 
 
@@ -151,28 +165,45 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, dtype=None, device
 # ------------------------------------------------------------------ blocks
 def apply_block(blk: dict, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
                 positions: torch.Tensor, opts: ModelOptions):
-    """Training/prefill block. Returns (h, moe_aux_loss), the aux 0 here."""
-    require_ported(cfg)
-    a = attn_mod.attention_forward(
-        blk["attn"], cfg, rms_norm(h, blk["attn_norm"], cfg.norm_eps), positions,
-        q_block=opts.q_block, kv_block=opts.kv_block,
-        skip_masked_blocks=opts.skip_masked_blocks, bf16_probs=opts.bf16_probs)
-    h = h + a
+    """Training/prefill block. Returns (h, moe_aux_loss), the aux 0 without
+    a MoE."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.layer_kind(layer_idx) == "attn":
+        a = attn_mod.attention_forward(
+            blk["attn"], cfg, rms_norm(h, blk["attn_norm"], cfg.norm_eps), positions,
+            q_block=opts.q_block, kv_block=opts.kv_block,
+            skip_masked_blocks=opts.skip_masked_blocks, bf16_probs=opts.bf16_probs)
+        h = h + a
+    else:
+        h = h + ssm_mod.ssm_forward(blk["ssm"], cfg, rms_norm(h, blk["ssm_norm"], cfg.norm_eps),
+                                    associative=opts.associative_scan)
     if "mlp" in blk:
         h = h + swiglu(blk["mlp"], rms_norm(h, blk["ffn_norm"], cfg.norm_eps))
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    elif "moe" in blk:
+        y, aux = moe_mod.moe_forward(blk["moe"], cfg, rms_norm(h, blk["ffn_norm"], cfg.norm_eps),
+                                     chunks=opts.moe_chunks)
+        h = h + y
+    return h, aux
 
 
 def apply_block_decode(blk: dict, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
                        state: dict, pos: int):
     """One-token decode block. Returns (h, new_state)."""
-    require_ported(cfg)
-    a, new_inner = attn_mod.decode_attention(
-        blk["attn"], cfg, rms_norm(h, blk["attn_norm"], cfg.norm_eps), state["attn"], pos)
+    if cfg.layer_kind(layer_idx) == "attn":
+        a, new_inner = attn_mod.decode_attention(
+            blk["attn"], cfg, rms_norm(h, blk["attn_norm"], cfg.norm_eps), state["attn"], pos)
+        new_state = {**state, "attn": new_inner}
+    else:
+        a, new_inner = ssm_mod.ssm_decode_step(
+            blk["ssm"], cfg, rms_norm(h, blk["ssm_norm"], cfg.norm_eps), state["ssm"])
+        new_state = {**state, "ssm": new_inner}
     h = h + a
     if "mlp" in blk:
         h = h + swiglu(blk["mlp"], rms_norm(h, blk["ffn_norm"], cfg.norm_eps))
-    return h, {**state, "attn": new_inner}
+    elif "moe" in blk:
+        y, _ = moe_mod.moe_forward(blk["moe"], cfg, rms_norm(h, blk["ffn_norm"], cfg.norm_eps))
+        h = h + y
+    return h, new_state
 
 
 def _per_group(groups: dict) -> list:
@@ -247,10 +278,18 @@ def server_forward(server_params: dict, cfg: ModelConfig, h: torch.Tensor,
         h, a = apply_block(blk, cfg, n_client + j, h, positions, opts)
         aux = aux + a
     start = n_client + n_prefix
-    for grp in (_per_group(server_params["groups"]) if n_groups > 0 else []):
+
+    def group_body(hh, aa, grp):
         for p in range(period):
-            h, a = apply_block(grp[f"pos{p}"], cfg, start + p, h, positions, opts)
-            aux = aux + a
+            hh, a = apply_block(grp[f"pos{p}"], cfg, start + p, hh, positions, opts)
+            aa = aa + a
+        return hh, aa
+
+    for grp in (_per_group(server_params["groups"]) if n_groups > 0 else []):
+        if opts.remat:
+            h, aux = checkpoint(group_body, h, aux, grp, use_reentrant=False)
+        else:
+            h, aux = group_body(h, aux, grp)
     h = rms_norm(h, server_params["final_norm"], cfg.norm_eps)
     head = tied_embed.T if cfg.tie_embeddings else server_params["lm_head"]
     logits = h @ head
@@ -274,20 +313,27 @@ def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 # ------------------------------------------------------------------ decode
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
                       device=None) -> dict:
-    """The per-layer KV caches, laid out as the client/prefix/groups split
-    (the groups' stacked ``[n_groups, ...]``), on ``device`` (``None``:
-    the card)."""
-    require_ported(cfg)
+    """The per-layer decode state, laid out as the client/prefix/groups
+    split (the groups' stacked ``[n_groups, ...]``), on ``device``
+    (``None``: the card): ``{"attn": KV cache of dtype}`` for an attention
+    layer, ``{"ssm": init_ssm_state}`` for a mamba layer (its conv ring
+    float32 whatever ``dtype``, as the reference's)."""
     device = resolve_device(device)
     n_client, n_prefix, n_groups = stack_split(cfg)
     period = period_of(cfg)
-    layer = lambda: {"attn": attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, device)}  # noqa: E731
-    state: Dict[str, Any] = {"client": [layer() for _ in range(n_client)],
-                             "prefix": [layer() for _ in range(n_prefix)]}
+
+    def layer(i):
+        if cfg.layer_kind(i) == "attn":
+            return {"attn": attn_mod.init_kv_cache(cfg, batch, max_seq, dtype, device)}
+        return {"ssm": ssm_mod.init_ssm_state(cfg, batch, device=device)}
+
+    start = n_client + n_prefix
+    state: Dict[str, Any] = {"client": [layer(i) for i in range(n_client)],
+                             "prefix": [layer(n_client + j) for j in range(n_prefix)]}
     if n_groups > 0:
         state["groups"] = tree_map(
             lambda x: x[None].expand((n_groups,) + tuple(x.shape)).contiguous(),
-            {f"pos{p}": layer() for p in range(period)})
+            {f"pos{p}": layer(start + p) for p in range(period)})
     return state
 
 

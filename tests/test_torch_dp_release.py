@@ -112,3 +112,62 @@ def test_release_plan_at_the_cuts():
     assert not ops.release_plan(8, 112 * 112 * 64 + 2, 132)["vec4"]
     with pytest.raises(ValueError, match="no plan"):
         ops.release_plan(8, 100, 0)
+
+
+HALVES = {"bfloat16": (torch.bfloat16, jnp.bfloat16, 7), "float16": (torch.float16,
+                                                                     jnp.float16, 10)}
+
+
+def half_ulp(v: np.ndarray, mant: int) -> np.ndarray:
+    """One ulp of a 2-byte float type with ``mant`` mantissa bits at the
+    float32 values ``v`` (float16's subnormal step at its smallest)."""
+    e = np.floor(np.log2(np.maximum(np.abs(v), 2.0 ** -126)))
+    return np.maximum(2.0 ** (e - mant), 2.0 ** -24 if mant == 10 else 2.0 ** -133)
+
+
+def assert_within_one_ulp(got: torch.Tensor, want, mant: int):
+    """Both sides sum in float32 and round once to the half type: they may
+    land on neighbouring values, one ulp apart, where their float32 sums
+    straddle a rounding boundary; never further."""
+    g, w = got.float().numpy(), np.asarray(want, np.float32)
+    assert np.all(np.abs(g - w) <= np.maximum(half_ulp(w, mant), half_ulp(g, mant)))
+
+
+@pytest.mark.parametrize("half", sorted(HALVES))
+@pytest.mark.parametrize("shape,clip,sigma", [CASES[1], CASES[3], CASES[4]])
+def test_half_types_match_pallas_within_one_ulp(half, shape, clip, sigma):
+    """bfloat16 and float16 x and noise: the plain version (the kernel's
+    yardstick and its CPU path) against the Pallas kernel in interpret mode,
+    which loads them, computes in float32 and stores x's type."""
+    tdt, jdt, mant = HALVES[half]
+    x, nz = (torch.from_numpy(a).to(tdt) for a in _inputs(4, shape))
+    want = dp_release_pallas(*(jnp.asarray(t.float().numpy()).astype(jdt) for t in (x, nz)),
+                             clip_norm=clip, sigma=sigma, interpret=True)
+    assert want.dtype == jdt
+    for got in (dp_release_ref(x, nz, clip_norm=clip, sigma=sigma),
+                ops.dp_release_with_noise(x, nz, clip_norm=clip, sigma=sigma, use_kernel=True)):
+        assert got.dtype == tdt
+        assert_within_one_ulp(got, np.asarray(want.astype(jnp.float32)), mant)
+
+
+def test_kernel_inputs_take_the_half_types_and_refuse_others():
+    """What the CUDA wrapper checks before it launches: float32, bfloat16 or
+    float16 tensors of one type, contiguous; int, float64, a mixed pair and
+    a strided view are refused. The plan of a 2-byte type splits a row into
+    as many blocks as float32's, but never loads float4 (so its chunk need
+    not be a multiple of 4)."""
+    x = torch.zeros((3, 8))
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        ops.check_inputs(x.to(dt), x.to(dt), 1.0)
+    for bad in ((x.long(), x.long()), (x.double(), x.double()), (x.bfloat16(), x),
+                (x.t().contiguous().t(), x)):
+        with pytest.raises(ValueError, match="bfloat16 or float16"):
+            ops.check_inputs(*bad, 1.0)
+    ops.check_inputs(x.half(), None, 0.0)  # sigma 0: the noise is not read
+    f32, bf = ops.release_plan(8, 802816, 132), ops.release_plan(8, 802816, 132, True,
+                                                                 "bfloat16")
+    assert f32["vec4"] and not bf["vec4"] and bf["dtype"] == "bfloat16"
+    assert (f32["blocks_per_row"], f32["launches"]) == (bf["blocks_per_row"], bf["launches"])
+    assert bf["chunk"] * bf["blocks_per_row"] >= 802816 > bf["chunk"] * (bf["blocks_per_row"] - 1)
+    with pytest.raises(ValueError, match="no plan"):
+        ops.release_plan(8, 100, 132, True, "float64")

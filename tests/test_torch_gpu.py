@@ -566,3 +566,130 @@ def test_llm_split_session_weights_are_the_cpus(cuda):
                  for d in (cuda, "cpu"))
     assert all(torch.equal(a.cpu(), b)
                for a, b in zip(tree_leaves(card.state), tree_leaves(cpu.state)))
+
+
+def _within_one_ulp(got, want, dtype):
+    """|got - want| within one ulp of the half type (at the larger of the
+    two values) beyond TOL: each side rounds a float32 value once, and the
+    float32 values part by up to TOL (cuDNN's conv algorithm), more than an
+    ulp of a value that the noise all but cancels."""
+    mant = {torch.bfloat16: 7, torch.float16: 10}[dtype]
+    floor = 2.0 ** (-24 if dtype == torch.float16 else -133)
+    g, w = got.float(), want.float()
+
+    def ulp(v):
+        return torch.exp2(torch.floor(torch.log2(v.abs().clamp(min=2.0 ** -126))) - mant
+                          ).clamp(min=floor)
+
+    one = torch.maximum(ulp(g), ulp(w))
+    return bool(((g - w).abs() <= one + TOL["atol"] + TOL["rtol"] * w.abs()).all())
+
+
+# the half types take the scalar path of each kernel: privacy_conv's Cin 1
+# and generic variants, dp_release one block a row and a split row, each
+# with and without noise
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", ["conv_cin1", "conv_generic", "release_rows",
+                                  "release_split", "release_split_sigma0"])
+def test_serving_kernels_take_the_half_types(cuda, dtype, case):
+    """bfloat16 and float16 in and out, float32 sums: within one ulp of the
+    type beyond TOL of the plain version (which computes in float32 and
+    rounds once), and the same bits on a relaunch."""
+    g = torch.Generator().manual_seed(7)
+    if case.startswith("conv"):
+        shape = (8, 64, 64, 1, 16) if case == "conv_cin1" else (2, 34, 16, 20, 12)
+        B, H, W, cin, cout = shape
+        x, w = _randn(g, B, H, W, cin).to(dtype), _randn(g, 3, 3, cin, cout, scale=0.3).to(dtype)
+        b, nz = _randn(g, cout, scale=0.1).to(dtype), _randn(g, B, H // 2, W // 2, cout).to(dtype)
+        plan = pc_ops.plan_for(x, w, nz, 0.05)
+        assert plan["dtype"] == str(dtype).removeprefix("torch.") and not plan["vec4"]
+        fn = lambda: pc_ops.privacy_conv_forward(x, w, b, nz, 0.05)  # noqa: E731
+        want = privacy_conv_ref(x, w, b, nz, noise_scale=0.05)
+    else:
+        shape = (64, 32, 32, 16) if case == "release_rows" else (3, 512, 2048)
+        sigma = 0.0 if case.endswith("sigma0") else 9.7
+        x, nz = _randn(g, *shape).to(dtype), _randn(g, *shape).to(dtype)
+        plan = dp_ops.plan_for(x, nz, sigma)
+        assert (plan["blocks_per_row"] > 1) == (case != "release_rows") and not plan["vec4"]
+        fn = lambda: dp_ops.dp_release_forward(x, nz, 1.0, sigma)  # noqa: E731
+        want = dp_release_ref(x, nz, clip_norm=1.0, sigma=sigma)
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, again)
+    assert _within_one_ulp(got, want, dtype)
+
+
+def test_half_kernels_refuse_mixed_types(cuda):
+    x = torch.randn(2, 8, 8, 1, device=cuda).bfloat16()
+    w, b = torch.randn(3, 3, 1, 4, device=cuda), torch.zeros(4, device=cuda)
+    with pytest.raises(ValueError, match="one type"):
+        pc_ops.privacy_conv_forward(x, w, b, None, 0.0)
+    with pytest.raises(ValueError, match="one type"):
+        dp_ops.dp_release_forward(x, x.half(), 1.0, 1.0)
+    with pytest.raises(ValueError, match="float32\\)"):  # the banked launch is float32 alone
+        pc_ops.privacy_conv_banked_forward(x[None], w[None].bfloat16(), b[None].bfloat16(),
+                                           torch.zeros(1, dtype=torch.int32, device=cuda),
+                                           None, 0.0)
+
+
+@pytest.mark.parametrize("arch,cf", [("granite-moe-1b-a400m", 1.25),
+                                     ("granite-moe-1b-a400m", 1.0), ("mixtral-8x7b", 1.25)])
+def test_moe_layer_on_the_card_against_the_cpu(cuda, arch, cf):
+    """``moe_forward`` on the card against the CPU (reduced widths, 96
+    tokens; at capacity factor 1 tokens are dropped): the same routing,
+    the output, aux and gradients within 1e-5; the card bit-equal from call
+    to call (the combine has no atomics)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), capacity_factor=cf)
+    params = moe.init_moe(torch.Generator().manual_seed(3), cfg, torch.float32)
+    x = torch.randn((4, 24, cfg.d_model), generator=torch.Generator().manual_seed(4))
+    out = {}
+    for dev in ("cpu", cuda, cuda):
+        leaves = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        xx = x.to(dev).requires_grad_()
+        _, (dest, _, _, _), _ = moe._route_and_dispatch(leaves["router"], cfg,
+                                                        xx.reshape(-1, cfg.d_model).float())
+        y, aux = moe.moe_forward(leaves, cfg, xx)
+        grads = torch.autograd.grad(y.square().mean() + aux, [xx] + list(leaves.values()))
+        out.setdefault(str(dev), []).append([dest, y, aux, *grads])
+    (cpu,), (card, again) = out["cpu"], out[str(cuda)]
+    assert all(torch.equal(a, b) for a, b in zip(card, again))
+    assert torch.equal(card[0].cpu(), cpu[0])
+    for a, b in zip(card[1:], cpu[1:]):
+        torch.testing.assert_close(a.cpu(), b, **TOL)
+
+
+def test_ssm_layer_on_the_card_against_the_cpu(cuda):
+    """``ssm_forward`` (both scans) and twelve decode steps on the card
+    against the CPU, reduced falcon-mamba-7b: the output and gradients
+    within 1e-5 (the associative scan at 1e-4 / 1e-3, the reference
+    test's), the decode state too."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+
+    cfg = get_config("falcon-mamba-7b").reduced()
+    params = ssm.init_ssm(torch.Generator().manual_seed(5), cfg, torch.float32)
+    x = torch.randn((2, 12, cfg.d_model), generator=torch.Generator().manual_seed(6))
+    for assoc, tol in ((False, TOL), (True, dict(atol=1e-4, rtol=1e-3))):
+        res = []
+        for dev in ("cpu", cuda):
+            leaves = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+            xx = x.to(dev).requires_grad_()
+            y = ssm.ssm_forward(leaves, cfg, xx, associative=assoc)
+            res.append([y, *torch.autograd.grad(y.square().mean(),
+                                                [xx] + list(leaves.values()))])
+        for a, b in zip(res[1], res[0]):
+            torch.testing.assert_close(a.cpu(), b, **tol)
+    states = []
+    with torch.no_grad():
+        for dev in ("cpu", cuda):
+            p = {k: v.to(dev) for k, v in params.items()}
+            st, ys = ssm.init_ssm_state(cfg, 2, device=dev), []
+            for t in range(12):
+                y, st = ssm.ssm_decode_step(p, cfg, x[:, t:t + 1].to(dev), st)
+                ys.append(y)
+            states.append([torch.cat(ys, 1), st["conv"], st["h"]])
+    for a, b in zip(states[1], states[0]):
+        torch.testing.assert_close(a.cpu(), b, **TOL)

@@ -25,6 +25,7 @@ assert {"repro_torch.common.tree", "repro_torch.optim.optimizers", "repro_torch.
         "repro_torch.privacy.audit", "repro_torch.core.dp",
         "repro_torch.core.inversion", "repro_torch.models.attention",
         "repro_torch.models.transformer", "repro_torch.models.model", "repro_torch.data.lm",
+        "repro_torch.models.moe", "repro_torch.models.ssm",
         "repro_torch.core.distributed", "repro_torch.launch.serve",
         "repro_torch.launch.train"} <= set(names), names
 import numpy as np, torch

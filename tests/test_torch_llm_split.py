@@ -40,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as j_get_config
 from repro.configs.base import ModelConfig as JConfig
 from repro.core import SplitSession as JSession
 from repro.core import SplitTrainConfig as JTrainConfig
@@ -58,6 +59,7 @@ from repro_torch.core import SamplePlan, SplitSession, SplitTrainConfig
 from repro_torch.core import distributed as td
 from repro_torch.core.adapters import mlp_adapter
 from repro_torch.configs import CHOLESTEROL_MLP
+from repro_torch.models.model import MOE_AUX_WEIGHT
 from repro_torch.models.transformer import ModelOptions
 from repro_torch.optim import adamw
 from repro_torch.privacy import DPConfig
@@ -88,11 +90,11 @@ def tiny_shards(n_clients=C, seed=0, sizes=(24, 16, 12)):
                              for n in sizes[:n_clients])]
 
 
-def jax_noise(key, dp, n_clients=C, b=B):
+def jax_noise(key, dp, n_clients=C, b=B, d=TINY_KW["d_model"]):
     """The model and guard noise the reference's step draws from its key,
     ``[C, b, S, d]`` each (the guard's ``None`` where it draws none)."""
     keys = jax.random.split(key, n_clients)
-    shape = (b, SEQ, TINY_KW["d_model"])
+    shape = (b, SEQ, d)
     model = np.stack([np.asarray(jax.random.normal(k, shape, jnp.float32)) for k in keys])
     guard = JGuard(dp)
     if guard.sigma <= 0:
@@ -102,11 +104,11 @@ def jax_noise(key, dp, n_clients=C, b=B):
     return torch.from_numpy(model), torch.from_numpy(noise)
 
 
-def jax_plan(jtc, steps, lens, epoch_key):
+def jax_plan(jtc, steps, lens, epoch_key, d=TINY_KW["d_model"]):
     """The reference engine's epoch plan as the port's ``SamplePlan``."""
     idx, step_keys = jt.make_sample_plan(jtc, steps)(lens, epoch_key)
     noise = [jax_noise(step_keys[t], jtc.privacy, jtc.n_clients,
-                       jt.fused_client_batch(jtc)) for t in range(steps)]
+                       jt.fused_client_batch(jtc), d) for t in range(steps)]
     guard = None if noise[0][1] is None else torch.stack([n[1] for n in noise])
     return SamplePlan(torch.from_numpy(np.array(idx)).long(),
                       torch.stack([n[0] for n in noise]), guard)
@@ -191,12 +193,12 @@ def test_step_leaves_its_input_state_and_updates_in_slices(monkeypatch):
 
 
 # ----------------------------------------------------------------- engine
-def _sessions(mode="detached", guard="clipped", shared=False, seed=0):
+def _sessions(mode="detached", guard="clipped", shared=False, seed=0, cfgs=(J_TINY, T_TINY)):
     jtc = JTrainConfig(**TC, mode=mode, privacy=_dp(guard, False))
     ttc = SplitTrainConfig(**TC, mode=mode, privacy=_dp(guard, True))
-    js = JSession(jd.llm_adapter(J_TINY, J_OPTS, jnp.float32), jtc, j_adamw(1e-3),
+    js = JSession(jd.llm_adapter(cfgs[0], J_OPTS, jnp.float32), jtc, j_adamw(1e-3),
                   engine="llm-split", seed=seed, shared_bank=shared)
-    ps = SplitSession(td.llm_adapter(T_TINY, T_OPTS, torch.float32), ttc, adamw(1e-3),
+    ps = SplitSession(td.llm_adapter(cfgs[1], T_OPTS, torch.float32), ttc, adamw(1e-3),
                       engine="llm-split", seed=seed, shared_bank=shared, device="cpu")
     # the reference's weights (before its donating fit frees them)
     ps._native = ps.engine.from_canonical(to_torch(jax.device_get(js.state), "cpu"))
@@ -208,7 +210,8 @@ def _fit_both(js, ps, jtc, shards, epochs, steps):
     lens = jt.device_put_shards(shards)[2]
     root = jax.random.PRNGKey(js.seed)
     e0 = js.engine._epochs_done
-    plans = [jax_plan(jtc, steps, lens, jax.random.fold_in(root, e0 + e + 1))
+    d = ps.adapter.cfg.d_model
+    plans = [jax_plan(jtc, steps, lens, jax.random.fold_in(root, e0 + e + 1), d)
              for e in range(epochs)]
 
     def next_plan(steps_per_epoch, lens, sample_shape):
@@ -372,3 +375,88 @@ def test_train_driver_on_a_reduced_demo(tmp_path, monkeypatch, capsys):
     assert sorted(os.listdir(tmp_path / "ck")) == ["ckpt_00000002.json", "ckpt_00000002.npz",
                                                    "ckpt_00000004.json", "ckpt_00000004.npz"]
     assert "privacy:" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------- the families
+def _family(arch):
+    """A reduced MoE or SSM config (2 layers, d 256; granite 4 experts, top
+    2) with TINY's model noise at the cut, on both sides."""
+    return tuple(dataclasses.replace(get(arch).reduced(), privacy_noise=0.02)
+                 for get in (j_get_config, get_config))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "falcon-mamba-7b"])
+def test_family_guarded_step_matches_jax(arch):
+    """Two guarded steps (the clipped guard, detached) of the MoE and the
+    SSM families against the reference's, fed its noise: metrics and the
+    state at TOL (the AdamW allowance on the weights). The MoE aux counts
+    in the loss: ``loss - ce`` is ``MOE_AUX_WEIGHT`` times the server's
+    aux, above 0 for granite and 0 for falcon-mamba."""
+    jcfg, tcfg = _family(arch)
+    jdp, tdp = _dp("clipped", False), _dp("clipped", True)
+    j_step = jax.jit(jd.make_guarded_llm_step(jcfg, J_OPTS, j_adamw(1e-3), C, privacy=jdp))
+    t_step = td.make_guarded_llm_step(tcfg, T_OPTS, adamw(1e-3), C, privacy=tdp)
+    j_state = jd.init_llm_state(jax.random.PRNGKey(2), jcfg, C, j_adamw(1e-3), jnp.float32)
+    t_state = to_torch(jax.device_get(j_state), "cpu")
+    for t in range(2):
+        jb, tb = _batch(t)
+        key = jax.random.PRNGKey(20 + t)
+        model_noise, guard_noise = jax_noise(key, jdp, d=tcfg.d_model)
+        j_state, j_m = j_step(j_state, jb, key)
+        t_state, t_m = t_step(t_state, tb, model_noise, guard_noise)
+        for k in j_m:
+            np.testing.assert_allclose(t_m[k].numpy(), np.asarray(j_m[k]), err_msg=k, **TOL)
+        aux = float(t_m["loss"] - t_m["ce"]) / MOE_AUX_WEIGHT
+        assert aux > 0.5 if tcfg.n_experts else aux == 0.0
+    assert_state(t_state, j_state, 2)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "falcon-mamba-7b"])
+def test_family_session_fit_matches_jax(arch):
+    """``SplitSession(engine="llm-split").fit`` of each family, 1 epoch x 2
+    steps on the reference's plan: the epoch's means and the state."""
+    js, ps, jtc = _sessions(cfgs=_family(arch))
+    j_hist, t_hist = _fit_both(js, ps, jtc, tiny_shards(), 1, 2)
+    for k in ("loss", "ce", "grad_norm"):
+        np.testing.assert_allclose(t_hist[0][k], j_hist[0][k], err_msg=k, **TOL)
+    assert_state(ps.state, jax.device_get(js.state), 2)
+    assert ps.privacy_report()["releases"] == 2
+
+
+def test_moe_checkpoints_cross_both_ways(tmp_path):
+    """Reduced granite (tied, so the engine unties it): a port checkpoint
+    restores in the reference and the reverse, bit for bit, and the two
+    continue alike."""
+    jcfg, tcfg = _family("granite-moe-1b-a400m")
+    jtc = JTrainConfig(**TC, privacy=JDP(epsilon=1.0, clip_norm=1.0))
+    ttc = SplitTrainConfig(**TC, privacy=DPConfig(epsilon=1.0, clip_norm=1.0, use_kernel=True))
+    js = JSession(jd.llm_adapter(jcfg, J_OPTS, jnp.float32), jtc, j_adamw(1e-3),
+                  engine="llm-split", seed=0)
+    make = lambda: SplitSession(td.llm_adapter(tcfg, T_OPTS, torch.float32), ttc,  # noqa: E731
+                                adamw(1e-3), engine="llm-split", seed=0, device="cpu")
+    ps = make()
+    assert "lm_head" in ps.state["server"] and "moe" in ps.state["server"]["groups"]["pos0"]
+    ps.fit(tiny_shards(), epochs=1, steps_per_epoch=1)
+    js.restore(ps.save(str(tmp_path / "port")))
+    assert all(np.array_equal(a.numpy(), np.asarray(b)) for a, b in
+               zip(tree_leaves(ps.state), jax.tree.leaves(jax.device_get(js.state))))
+    back = make()
+    back.restore(js.save(str(tmp_path / "jax")))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back.state), tree_leaves(ps.state)))
+    assert ps.fit(tiny_shards(), epochs=1, steps_per_epoch=1) == \
+        back.fit(tiny_shards(), epochs=1, steps_per_epoch=1)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(back.state), tree_leaves(ps.state)))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "falcon-mamba-7b",
+                                  "jamba-1.5-large-398b"])
+def test_train_driver_on_the_families(arch, monkeypatch):
+    """``launch.train.main`` takes every family's ``--arch`` (reduced, on the
+    CPU): finite losses, the MoE aux in the loss where there is a MoE."""
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(train, "get_config", lambda name: get_config(name).reduced())
+    hist = train.main(["--arch", arch, "--steps", "2", "--log-every", "2", "--seq", "16",
+                       "--batch", "2", "--device", "cpu"])
+    assert len(hist) == 1 and np.isfinite(hist[0]["loss"])
+    assert (hist[0]["loss"] > hist[0]["ce"]) == (get_config(arch).n_experts > 0)

@@ -81,8 +81,9 @@ def test_argparse_round_trip():
     assert args.temperature == 0.0 and args.seed == 7 and args.smoke and args.device == "cpu"
     d = ap.parse_args([])
     want = jserve.build_parser().parse_args([])
-    assert {k: v for k, v in vars(d).items() if k != "device"} == vars(want)
-    assert d.device is None  # the card
+    # the port's additions: --device and --reduced
+    assert {k: v for k, v in vars(d).items() if k not in ("device", "reduced")} == vars(want)
+    assert d.device is None and not d.reduced  # the card, the named config
 
 
 def test_main_smoke_and_regular(capsys):
@@ -92,3 +93,61 @@ def test_main_smoke_and_regular(capsys):
     assert "SMOKE OK" in capsys.readouterr().out
     assert serve.main(common + ["--temperature", "0.0"])["tokens_per_s"] > 0
     assert "tok/s" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "jamba-1.5-large-398b",
+                                  "granite-moe-1b-a400m"])
+def test_family_greedy_tokens_match_jax(arch):
+    """The SSM, hybrid and MoE families at their reduced widths: greedy
+    tokens equal to the reference's on its weights (the SSM state and the
+    MoE routing carried through the prompt and the generation)."""
+    jcfg, tcfg = j_get_config(arch).reduced(), get_config(arch).reduced()
+    jp = jm.init_model(jax.random.PRNGKey(1), jcfg, jnp.float32)
+    prompts = serve.make_prompts(tcfg, BATCH, PROMPT, seed=2, device="cpu")
+    want = jserve.prefill_and_decode(jcfg, jp, jnp.asarray(prompts.numpy()), gen=GEN,
+                                     temperature=0.0)["tokens"]
+    got = serve.prefill_and_decode(tcfg, to_torch(jp, "cpu"), prompts, gen=GEN,
+                                   temperature=0.0, check_steps=True)
+    np.testing.assert_array_equal(got["tokens"], want)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "granite-moe-1b-a400m",
+                                  "jamba-1.5-large-398b"])
+def test_smoke_runs_the_reduced_family(arch, capsys):
+    """``--smoke --reduced --device cpu`` of each family: its reduced
+    config, greedy and deterministic."""
+    serve.main(["--smoke", "--reduced", "--arch", arch, "--batch", "2", "--prompt-len", "4",
+                "--gen", "3", "--device", "cpu"])
+    assert f"SMOKE OK arch={arch}-smoke" in capsys.readouterr().out
+
+
+class _Built(Exception):
+    pass
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("arch", ["demo-11m", "llama3.2-1b", "falcon-mamba-7b"])
+def test_smoke_builds_the_references_config(arch, reduced, monkeypatch):
+    """``--smoke`` builds the config the reference's ``--smoke`` builds: the
+    named one at full size; ``--reduced`` (the port's option, which the
+    reference lacks) builds the reference's ``reduced()`` of it. Each
+    side's ``init_model`` records its config and stops the run."""
+    built = {}
+
+    def recording(side):
+        def init_model(key, cfg, *args, **kwargs):
+            built[side] = dataclasses.asdict(cfg)
+            raise _Built
+        return init_model
+
+    monkeypatch.setattr(jm, "init_model", recording("jax"))
+    monkeypatch.setattr(tm, "init_model", recording("torch"))
+    with pytest.raises(_Built):
+        jserve.main(["--smoke", "--arch", arch])
+    with pytest.raises(_Built):
+        serve.main(["--smoke", "--arch", arch, "--device", "cpu"]
+                   + (["--reduced"] if reduced else []))
+    want = j_get_config(arch).reduced() if reduced else j_get_config(arch)
+    assert built["torch"] == dataclasses.asdict(want)
+    if not reduced:
+        assert built["torch"] == built["jax"]

@@ -147,3 +147,42 @@ def test_banked_matches_vmapped_jax(N, b, H, W, cin, cout, scale, cids, banks):
     assert plan["banked"] and plan["blocks"] == ops.conv_plan(N * b, H, W, cin, cout)["blocks"]
     with pytest.raises(ValueError, match="requires noise"):
         ops.privacy_conv_banked_forward(*_t(x, w, bb), tc, None, 0.1)
+
+
+@pytest.mark.parametrize("half", ["bfloat16", "float16"])
+@pytest.mark.parametrize("B,H,W,cin,cout,scale", [SHAPES[1], SHAPES[3], SHAPES[5]])
+def test_half_types_match_pallas_within_one_ulp(half, B, H, W, cin, cout, scale):
+    """bfloat16 and float16 inputs: the plain version (the kernel's
+    yardstick and its CPU path) against the Pallas kernel in interpret mode,
+    which loads them, sums in float32 and stores x's type."""
+    from test_torch_dp_release import HALVES, assert_within_one_ulp
+
+    tdt, jdt, mant = HALVES[half]
+    ts = [torch.from_numpy(a).to(tdt) for a in _inputs(4, B, H, W, cin, cout)]
+    want = privacy_conv_pallas(*(jnp.asarray(t.float().numpy()).astype(jdt) for t in ts),
+                               noise_scale=scale, interpret=True)
+    assert want.dtype == jdt
+    for got in (privacy_conv_ref(*ts, noise_scale=scale),
+                ops.privacy_conv(*ts, noise_scale=scale, use_kernel=True)):
+        assert got.dtype == tdt
+        assert_within_one_ulp(got, np.asarray(want.astype(jnp.float32)), mant)
+
+
+def test_kernel_inputs_take_the_half_types_and_refuse_others():
+    """What the CUDA wrapper checks before it launches: float32, bfloat16 or
+    float16 tensors of one type, contiguous (the banked launch float32
+    alone); int, float64 and a mixed set are refused. The plan of a 2-byte
+    type is float32's but never float4."""
+    x, w, b, nz = _t(*_inputs(3, 1, 8, 8, 2, 4))
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        ops.check_inputs([t.to(dt) for t in (x, w, b, nz)], x.to(dt))
+    for bad in ([x.long()], [x.double()], [x, w.bfloat16()]):
+        with pytest.raises(ValueError, match="one type"):
+            ops.check_inputs(bad, bad[0])
+    with pytest.raises(ValueError, match="float32\\)"):
+        ops.check_inputs([x.bfloat16()], x.bfloat16(), (torch.float32,))
+    f32, half = ops.conv_plan(64, 64, 64, 1, 16), ops.conv_plan(64, 64, 64, 1, 16, True,
+                                                                "float16")
+    assert f32["vec4"] and not half["vec4"] and half["dtype"] == "float16"
+    assert {k: v for k, v in f32.items() if k not in ("vec4", "dtype")} == \
+        {k: v for k, v in half.items() if k not in ("vec4", "dtype")}

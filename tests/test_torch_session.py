@@ -211,3 +211,23 @@ def test_readme_port_quickstart_runs():
     assert all(np.isfinite(metrics[k]) for k in ("msle", "rmsle", "smape"))
     assert scope["session"].privacy_report()["releases"] == 0  # no guard in the snippet
     assert len(scope["session"].history) == 20
+
+
+@pytest.mark.parametrize("engine,unroll", [("fused-scan", 2), ("fused-queue", 2),
+                                           ("fused-scan", True), ("fused-queue", 0)])
+def test_unroll_is_accepted_and_changes_nothing(engine, unroll):
+    """``unroll`` as the reference takes it on the fused engines: a bool or
+    an int of at least 0 runs with the metrics and state of a run without
+    it (an epoch here is a Python loop, which has nothing to unroll); a
+    negative one raises the ``ValueError`` of the reference's ``lax.scan``."""
+    _, port_session, shards, _ = _cnn("detached")
+    runs = []
+    for opts in ({}, {"unroll": unroll}):
+        s = port_session(engine, seed=2, **opts)
+        runs.append((s.fit(shards, epochs=1, steps_per_epoch=2), s.state))
+    assert runs[0][0] == runs[1][0]
+    for x, y in zip(tree_leaves(runs[0][1]), tree_leaves(runs[1][1])):
+        assert torch.equal(x, y)
+    assert s.engine.unroll == unroll
+    with pytest.raises(ValueError, match="non-negative"):
+        port_session(engine, unroll=-1)

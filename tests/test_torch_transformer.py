@@ -57,9 +57,9 @@ def _sides(batch):
             {k: torch.from_numpy(v) for k, v in batch.items()})
 
 
-def _close(got, want, what=""):
+def _close(got, want, what="", tol=TOL):
     np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32),
-                               err_msg=what, **TOL)
+                               err_msg=what, **tol)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -173,16 +173,160 @@ def test_decode_steps_match_jax(window):
         _close(torch.from_numpy(g), w, path)
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "falcon-mamba-7b", "jamba-1.5-large-398b",
+# the MoE, SSM and hybrid families at their reduced widths (``.reduced()``:
+# 2 layers, 4 for the hybrid at a period of 2), and a hybrid at jamba's own
+# layer pattern (16 layers, attention at 4 of every 8, MoE every other
+# layer), so that a prefix of 7 mixed blocks and a group of 8 are covered
+FAMILIES = ("granite-moe-1b-a400m", "mixtral-8x7b", "falcon-mamba-7b", "jamba-1.5-large-398b",
+            "jamba-1.5-large-398b/pattern")
+PATTERN = dict(n_layers=16, attn_period=8, attn_offset=4, moe_period=2)
+# the 16-block pattern carries float32 rounding through five times the
+# depth of the 3-block cases: logits part by up to 2e-5 at logits of 3.9,
+# the embedding's gradient by 1.4e-4 at 6.7
+DEEP_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _family(arch, **kw):
+    name, _, variant = arch.partition("/")
+    kw = {**(PATTERN if variant == "pattern" else {}), **kw}
+    return (dataclasses.replace(j_get_config(name).reduced(), **kw),
+            dataclasses.replace(get_config(name).reduced(), **kw))
+
+
+def _tree_shapes(tree):
+    return {k: (tuple(v.shape), str(v.dtype).removeprefix("torch.")) for k, v in
+            flatten(tree).items()}
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_moe_ssm_and_hybrid_families_match_jax(arch):
+    """Each family against the reference on its weights: the init tree's
+    paths, shapes and dtypes, ``stack_split`` and ``period_of``; the
+    forward's logits and MoE aux (the client's included); the loss and its
+    parts and every gradient with the cut open; eight decode steps and the
+    final decode state (``{"ssm": ...}`` on a mamba layer). TOL, and
+    DEEP_TOL for the 16-block pattern."""
+    jcfg, tcfg = _family(arch)
+    tol = DEEP_TOL if arch.endswith("/pattern") else TOL
+    assert tcfg.family in tt.PORTED_FAMILIES
+    assert tt.stack_split(tcfg) == jt.stack_split(jcfg)
+    assert tt.period_of(tcfg) == jt.period_of(jcfg)
+    want = jax.eval_shape(lambda k: jt.init_params(k, jcfg, jnp.float32), jax.random.PRNGKey(0))
+    assert _tree_shapes(tt.init_params(torch.Generator().manual_seed(0), tcfg, torch.float32,
+                                       device="cpu")) == \
+        {k: (tuple(v.shape), str(v.dtype)) for k, v in flatten(
+            jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), want)).items()}
+
+    jp = jm.init_model(jax.random.PRNGKey(4), jcfg, jnp.float32)
+    tp = to_torch(jp, "cpu")
+    jb, tb = _sides(_batch(jcfg, seed=4))
+    kw = dict(q_block=8, kv_block=8, detach_cut=False)
+    jo, to = jt.ModelOptions(**kw), tt.ModelOptions(**kw)
+    (jloss, jparts), jgrad = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss_fn(p, jcfg, jb, jo), has_aux=True))(jp)
+    jlogits, jaux = jax.jit(lambda p: jt.forward(p, jcfg, jb, jo))(jp)
+    logits, aux = tt.forward(tp, tcfg, tb, to)
+    _close(logits, jlogits, "logits", tol)
+    _close(aux, jaux, "aux", tol)
+    assert (float(aux) > 0) == (tcfg.n_experts > 0)
+    leaves = [t.requires_grad_() for t in tree_leaves(tp)]
+    loss, parts = tm.loss_fn(tp, tcfg, tb, to)
+    _close(loss, jloss, "loss", tol)
+    _close(parts["moe_aux"], jparts["moe_aux"], "moe_aux", tol)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for (path, w), g in zip(sorted(flatten(jgrad).items()), grads):
+        _close(torch.zeros(w.shape) if g is None else g, w, path, tol)
+
+    toks = np.random.default_rng(5).integers(0, jcfg.vocab_size, (B, 8)).astype(np.int32)
+    js = jm.init_decode_state(jcfg, B, 8, jnp.float32)
+    ts = tm.init_decode_state(tcfg, B, 8, torch.float32, "cpu")
+    assert _tree_shapes(ts) == {k: (tuple(v.shape), str(v.dtype)) for k, v in
+                                flatten(jax.device_get(js)).items()}
+    step = jax.jit(lambda p, st, tok, pos: jm.serve_step(p, jcfg, st, tok, pos))
+    with torch.no_grad():
+        for t in range(8):
+            want_t, js = step(jp, js, jnp.asarray(toks[:, t:t + 1]), jnp.int32(t))
+            got_t, ts = tm.serve_step(tp, tcfg, ts, torch.from_numpy(toks[:, t:t + 1]), t)
+            _close(got_t, want_t, f"step {t}", tol)
+    for (path, w), (_, g) in zip(sorted(flatten(js).items()), sorted(flatten(ts).items())):
+        _close(torch.from_numpy(g), w, path, tol)
+
+
+def test_hybrid_pattern_layout():
+    """jamba's pattern: one client block, a prefix of 7 (global layers 1-7:
+    attention at layer 4, MoE at the odd layers), one group of 8."""
+    _, tcfg = _family("jamba-1.5-large-398b/pattern")
+    assert tt.stack_split(tcfg) == (1, 7, 1) and tt.period_of(tcfg) == 8
+    params = tt.init_params(torch.Generator().manual_seed(0), tcfg, torch.float32, "cpu")
+    kinds = ["attn" if "attn" in b else "ssm" for b in params["server"]["prefix"]]
+    assert kinds == ["ssm", "ssm", "ssm", "attn", "ssm", "ssm", "ssm"]
+    assert ["moe" in b for b in params["server"]["prefix"]] == [True, False] * 3 + [True]
+    groups = params["server"]["groups"]
+    assert "attn" in groups["pos4"] and all("ssm" in groups[f"pos{p}"] for p in range(8)
+                                             if p != 4)
+    assert all(("moe" in groups[f"pos{p}"]) == (p % 2 == 1) for p in range(8))
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b"])
+def test_dropless_decode_equals_prefill(arch):
+    """At capacity factor 8 no token is dropped, so decoding one token at a
+    time equals the prefill's logits (the reference's own check, at its
+    tolerance: atol 2e-4, rtol 1e-3)."""
+    _, tcfg = _family(arch, capacity_factor=8.0)
+    params = tm.init_model(torch.Generator().manual_seed(6), tcfg, torch.float32, "cpu")
+    toks = torch.randint(0, tcfg.vocab_size, (2, 16), generator=torch.Generator().manual_seed(7))
+    opts = tt.ModelOptions(q_block=8, kv_block=8, detach_cut=False)
+    with torch.no_grad():
+        full = tm.prefill(params, tcfg, {"tokens": toks}, opts)
+        state = tm.init_decode_state(tcfg, 2, 16, torch.float32, "cpu")
+        outs = []
+        for t in range(16):
+            lg, state = tm.serve_step(params, tcfg, state, toks[:, t:t + 1], t, opts)
+            outs.append(lg)
+    np.testing.assert_allclose(torch.cat(outs, 1).numpy(), full.numpy(), atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b/pattern", "falcon-mamba-7b",
                                   "granite-moe-1b-a400m"])
-def test_moe_and_ssm_configs_raise(arch):
-    cfg = get_config(arch).reduced()
-    gen = torch.Generator()
-    for call in (lambda: tt.init_params(gen, cfg, device="cpu"),
-                 lambda: tm.init_decode_state(cfg, 1, 4, device="cpu")):
-        with pytest.raises(ValueError, match="next slice"):
-            call()
-    assert tt.stack_split(cfg) == jt.stack_split(j_get_config(arch).reduced())
+def test_remat_gradients_are_bit_equal(arch):
+    """``remat`` recomputes each group in the backward pass: the loss and
+    every gradient are the ones without it, bit for bit."""
+    _, tcfg = _family(arch, n_layers=4) if "pattern" not in arch else _family(arch)
+    params = tm.init_model(torch.Generator().manual_seed(8), tcfg, torch.float32, "cpu")
+    _, tb = _sides(_batch(tcfg, seed=8))
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    runs = []
+    for remat in (False, True):
+        opts = tt.ModelOptions(q_block=8, kv_block=8, detach_cut=False, remat=remat)
+        loss, _ = tm.loss_fn(params, tcfg, tb, opts)
+        runs.append([loss] + list(torch.autograd.grad(loss, leaves, allow_unused=True)))
+    assert tt.stack_split(tcfg)[2] >= 1
+    for a, b in zip(*runs):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("arch,opt", [("granite-moe-1b-a400m", {"moe_chunks": 4}),
+                                      ("jamba-1.5-large-398b", {"moe_chunks": 2}),
+                                      ("falcon-mamba-7b", {"associative_scan": True}),
+                                      ("jamba-1.5-large-398b", {"associative_scan": True})])
+def test_options_match_jax(arch, opt):
+    """``moe_chunks`` and ``associative_scan`` through the whole model,
+    against the reference under the same option: logits, aux and loss at
+    1e-5 with chunks, at the associative scan's tolerance (atol 1e-4, rtol
+    1e-3, the reference's own) with the parallel prefix."""
+    jcfg, tcfg = _family(arch)
+    jp = jm.init_model(jax.random.PRNGKey(9), jcfg, jnp.float32)
+    tp = to_torch(jp, "cpu")
+    jb, tb = _sides(_batch(jcfg, seed=9))
+    tol = dict(atol=1e-4, rtol=1e-3) if opt.get("associative_scan") else TOL
+    jo, to = jt.ModelOptions(q_block=8, kv_block=8, **opt), tt.ModelOptions(q_block=8,
+                                                                             kv_block=8, **opt)
+    (jlogits, jaux), (jloss, _) = jax.jit(lambda p: (jt.forward(p, jcfg, jb, jo),
+                                                     jm.loss_fn(p, jcfg, jb, jo)))(jp)
+    logits, aux = tt.forward(tp, tcfg, tb, to)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **tol)
+    np.testing.assert_allclose(float(aux), float(jaux), **tol)
+    np.testing.assert_allclose(float(tm.loss_fn(tp, tcfg, tb, to)[0]), float(jloss), **tol)
 
 
 def test_make_batch_shapes_match_jax():

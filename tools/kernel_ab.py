@@ -62,8 +62,9 @@ def load(csrc: str, tag: str, out_dir: str) -> dict:
             raise RuntimeError(f"{tag} {name}: nvcc exited {proc.returncode}\n{log}")
         lib = ctypes.CDLL(path)
         for fname, argtypes in build.SIGNATURES[name].items():
-            fn = getattr(lib, fname)
-            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            fn = getattr(lib, fname, None)  # an older source lacks the newer entry points
+            if fn is not None:
+                fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
         libs[name] = lib
     return libs
 
