@@ -122,6 +122,20 @@ gradients are compared. ``check`` also holds both serving kernels in
 bfloat16 and float16 (the COVID-CT shapes and the LM cut) to their plain
 versions within one ulp and bit for bit on relaunch, and times them.
 
+Last, the mesh layer (``mesh=`` through the engines, on a 1x1
+``make_split_mesh`` grid: a one-rank NCCL process group): ``mesh_train``
+trains train_covid's session one epoch under the grid, under
+``make_client_mesh(1)`` and with no mesh, at the calibrated sigma and at
+sigma 0, and holds the losses, every state leaf and the launches a step
+equal; ``mesh_restore`` continues the grid's checkpoint without a mesh
+(and the reverse) bit for bit; ``mesh_serve`` serves a trace from the
+trained state under the grid and without, the same answers;
+``mesh_time`` reads the profiler's device time a step under the grid and
+the NCCL all-gather's share of it; the group is then destroyed. Within the
+llama path, ``lm_mesh`` takes two ``llm-split`` steps through
+``SplitSession`` from the session's state with and without the grid, bit
+for bit.
+
 It prints one JSON object per phase and a ``kernels`` line
 with every ported kernel (with its launches on the serving, training,
 queue, FedAvg, audit and LM paths, the MoE, SSM and hybrid ones among
@@ -165,6 +179,7 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.core import fedavg as fedavg_mod  # noqa: E402
 from repro_torch.core.adapters import cnn_adapter, mlp_adapter  # noqa: E402
 from repro_torch.core.distributed import llm_adapter, llm_step_parts  # noqa: E402
+from repro_torch.core.session import LLMSplitEngine  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
     _plan_round_robin_cycle,
     make_fleet_release_fwd,
@@ -196,6 +211,11 @@ from repro_torch.kernels.privacy_conv.ref import (  # noqa: E402
 from repro_torch.kernels.selective_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_client_mesh,
+    make_split_mesh,
+    release_meshes,
+)
 from repro_torch.launch.train import lm_shards  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -742,16 +762,18 @@ def kernel_counts() -> dict:
             for name, ops in (("privacy_conv", pc_ops), ("dp_release", dp_ops))}
 
 
-def covid_session(on: bool, device, noise_scale=None) -> SplitSession:
+def covid_session(on: bool, device, noise_scale=None, mesh=None) -> SplitSession:
     """The COVID-CT CNN at its published width, trained e2e with the guard
     at epsilon 1 (examples/covid_ct_split.py: server batch 64, adamw(1e-3));
     ``on`` routes the client stage and the release through the kernels;
-    ``noise_scale`` pins the guard's sigma (``None``: calibrated to epsilon)."""
+    ``noise_scale`` pins the guard's sigma (``None``: calibrated to epsilon);
+    ``mesh`` lays the session out on a ``launch.mesh`` mesh."""
     cfg = dataclasses.replace(COVID_CNN, use_kernel=on)
     dp = DPConfig(epsilon=1.0, delta=1e-5, clip_norm=1.0, use_kernel=on,
                   noise_scale=noise_scale)
     tc = SplitTrainConfig(server_batch=64, mode="e2e", privacy=dp)
-    return SplitSession(cnn_adapter(cfg), tc, adamw(1e-3), engine="auto", seed=0, device=device)
+    return SplitSession(cnn_adapter(cfg), tc, adamw(1e-3), engine="auto", seed=0, device=device,
+                        mesh=mesh)
 
 
 def step_losses(session) -> list:
@@ -1906,7 +1928,7 @@ class LMSpec:
     ``cpu_budget_s`` the CPU decode replay's budget; ``time_rounds`` the
     turns of the timed epochs and ``profile_steps`` the steps profiled
     for the busy share; ``e2e`` and ``remat`` add lm_train_e2e and
-    ``<prefix>_remat``."""
+    ``<prefix>_remat``, ``mesh`` the ``<prefix>_mesh`` gate (``lm_mesh``)."""
 
     prefix: str
     config: str
@@ -1921,6 +1943,7 @@ class LMSpec:
     e2e: bool = False
     remat: bool = False
     profile_steps: int = 3
+    mesh: bool = False
 
 
 # the LM paths at published widths, float32 (TF32 off), all trained by three
@@ -1946,7 +1969,7 @@ class LMSpec:
 #   reduced widths, since one of its MoE layers alone is 38.7 GB at the
 #   published width
 LM_SPECS = {
-    "lm": LMSpec("lm", "llama3.2-1b", seq=512, cpu_seq=128, e2e=True),
+    "lm": LMSpec("lm", "llama3.2-1b", seq=512, cpu_seq=128, e2e=True, mesh=True),
     "moe": LMSpec("moe", "granite-moe-1b-a400m", seq=512, cpu_seq=128, cpu_budget_s=20.0,
                   time_rounds=2),
     # one step profiled: the scan's ~40,000 launches a step take the
@@ -2524,7 +2547,8 @@ def lm_phases(dev, smi: str, release_inputs: dict, tmp: str, spec: LMSpec) -> di
     """One LM path, in order: ``<prefix>_decode``, ``<prefix>_train`` (with
     ``_restore`` and ``_forced``; its checkpoint under ``tmp``, removed
     once restored), ``<prefix>_time`` (the path's cut's release timed on
-    ``release_inputs["<prefix>_cut"]``), ``<prefix>_remat`` where
+    ``release_inputs["<prefix>_cut"]``), ``<prefix>_mesh`` where
+    ``spec.mesh``, ``<prefix>_remat`` where
     ``spec.remat`` and ``lm_train_e2e`` where ``spec.e2e``, then each
     phase's wall seconds (``<prefix>_wall``). Returns the decode's and the
     training's results and the timing row."""
@@ -2538,6 +2562,10 @@ def lm_phases(dev, smi: str, release_inputs: dict, tmp: str, spec: LMSpec) -> di
     t0 = time.perf_counter()
     timed = lm_time(dev, smi, lm["session"], lm["shards"], decode, release_inputs, spec)
     wall[f"{spec.prefix}_time"] = time.perf_counter() - t0
+    if spec.mesh:
+        t0 = time.perf_counter()
+        lm["mesh"] = lm_mesh(dev, smi, lm["session"], lm["shards"], spec)
+        wall[f"{spec.prefix}_mesh"] = time.perf_counter() - t0
     if spec.remat:
         t0 = time.perf_counter()
         lm["remat"] = lm_remat(smi, lm["session"], lm["plan"], spec)
@@ -2601,6 +2629,189 @@ def hybrid_phase(dev, smi: str) -> dict:
           "dp_release_calls": calls, "launches": launches, "step_loss": losses[0],
           "wall_s": time.perf_counter() - t0, "peak_gib": peak_gib()})
     return {"decode": decode, "launches": launches}
+
+
+# ==== the mesh layer: mesh= through the engines on a 1x1 grid of the card
+def states_equal(a, b) -> bool:
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def mesh_covid(dev, smi: str, tmp: str, shards) -> dict:
+    """``mesh_train``, ``mesh_restore``, ``mesh_serve`` and ``mesh_time``:
+    train_covid's session (COVID-CT at its published width, e2e, both
+    kernels) under ``make_split_mesh(1, 1)`` and ``make_client_mesh(1)``,
+    a one-rank NCCL group, against no mesh. One epoch from the seed's state
+    at the calibrated sigma and at sigma 0: the same losses, every leaf of
+    the canonical state bit for bit, the same launches a step. The grid's
+    checkpoint restored without a mesh continues bit for bit, and the
+    reverse. The trace served from the trained state under the grid gives
+    the answers served without one. Then the profiler's device time a step
+    of the grid's run, and the NCCL all-gather's share of it. cuDNN runs in
+    its deterministic mode, so that two runs give the same bits."""
+    torch.backends.cudnn.deterministic = True
+    grid = make_split_mesh(1, 1, n_clients=3)
+    layouts = {"none": None, "grid": grid, "client": make_client_mesh(1, n_clients=3)}
+    want = None
+    out = {"launches": {}}
+    for sigma_name, ns in (("calibrated", None), ("sigma0", 0.0)):
+        runs = {}
+        for name, mesh in layouts.items():
+            if sigma_name == "sigma0" and name == "client":
+                continue  # the client mesh is the grid's client axis alone
+            sess = covid_session(True, dev, ns, mesh=mesh)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            sess.fit(shards, epochs=1, steps_per_epoch=COVID_STEPS)
+            torch.cuda.synchronize()
+            runs[name] = {"session": sess, "wall_s": time.perf_counter() - t0,
+                          "losses": step_losses(sess),
+                          "launches": {k: v["launches"] for k, v in kernel_counts().items()}}
+        base = runs["none"]
+        (release,) = kernel_counts()["dp_release"]["plans"]
+        want = {"privacy_conv": 3 * COVID_STEPS,
+                "dp_release": COVID_STEPS * release["plan"]["launches"]}
+        for name, r in runs.items():
+            if r["launches"] != want:
+                raise AssertionError(f"mesh_train {sigma_name}/{name} launches {r['launches']}, "
+                                     f"want {want}")
+            if r["losses"] != base["losses"] or not states_equal(r["session"].state,
+                                                                  base["session"].state):
+                raise AssertionError(f"mesh_train {sigma_name}: the {name} layout differs from "
+                                     f"no mesh: losses {r['losses']} vs {base['losses']}")
+        out[sigma_name] = runs
+        out["launches"][sigma_name] = {name: r["launches"] for name, r in runs.items()}
+        emit({"phase": "mesh_train", "card": smi, "sigma": runs["grid"]["session"].guard.sigma,
+              "mesh": {"grid": dict(zip(grid.mesh_dim_names, grid.shape)),
+                       "backend": torch.distributed.get_backend()},
+              "steps": COVID_STEPS, "bit_identical": True,
+              "launches_per_step": {k: v / COVID_STEPS for k, v in want.items()},
+              **{f"{name}_wall_s": r["wall_s"] for name, r in runs.items()},
+              "step_losses": base["losses"]})
+
+    # ---- mesh_restore: the grid's checkpoint continued without a mesh, and
+    # a no-mesh checkpoint continued under the grid, bit for bit
+    cal = out["calibrated"]
+    restored = {}
+    for src, dst_mesh, tag in (("grid", None, "grid_to_none"), ("none", grid, "none_to_grid")):
+        sess = cal[src]["session"]
+        path = sess.save(os.path.join(tmp, tag))
+        other = covid_session(True, dev, mesh=dst_mesh)
+        other.restore(path)
+        other.fit(shards, epochs=1, steps_per_epoch=COVID_STEPS)
+        sess.fit(shards, epochs=1, steps_per_epoch=COVID_STEPS)
+        if step_losses(other) != step_losses(sess) or not states_equal(other.state, sess.state):
+            raise AssertionError(f"mesh_restore {tag}: the continued runs differ")
+        restored[tag] = step_losses(other)
+    emit({"phase": "mesh_restore", "bit_identical": True, "step_losses": restored})
+
+    # ---- mesh_serve: the trained state served under the grid and without
+    state = cal["none"]["session"].state
+    trace = poisson_trace(3, rate=2.0, horizon=16, seed=3, shares=SHARES)
+    dp = DPConfig(clip_norm=1.0, use_kernel=True)
+    reps = {}
+    for name, mesh in (("none", None), ("grid", grid)):
+        srv = SplitInferenceServer(cnn_adapter(dataclasses.replace(COVID_CNN, use_kernel=True)),
+                                   state, guard=PrivacyGuard(dp), max_batch=MAX_BATCH,
+                                   request_batch=REQUEST_BATCH, seed=0, device=dev, mesh=mesh)
+        reset_counts()
+        reps[name] = (srv.serve(trace, shards),
+                      {k: v["launches"] for k, v in kernel_counts().items()})
+    (r0, c0), (r1, c1) = reps["none"], reps["grid"]
+    if r0.fingerprint() != r1.fingerprint() or c0 != c1 or r0.answered == 0:
+        raise AssertionError("mesh_serve: the grid's answers or launches differ from no mesh")
+    emit({"phase": "mesh_serve", "answered": r1.answered, "fingerprint_equal": True,
+          "launches": c1, "wall_s": {"none": r0.wall_s, "grid": r1.wall_s}})
+
+    # ---- mesh_time: the profiler's device time a step of an epoch under
+    # the grid, and the NCCL all-gather's share of it
+    sess = covid_session(True, dev, mesh=grid)
+    sess.fit(shards, epochs=1, steps_per_epoch=COVID_STEPS)  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.fit(shards, epochs=1, steps_per_epoch=COVID_STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev_events) / 1e3 / COVID_STEPS
+    nccl = [e for e in dev_events if "nccl" in e.key.lower()]
+    nccl_ms = sum(e.self_device_time_total for e in nccl) / 1e3 / COVID_STEPS
+    host = [e for e in prof.key_averages() if "all_gather" in e.key.lower()
+            and e.device_type != DeviceType.CUDA]
+    torch.backends.cudnn.deterministic = False
+    out["time"] = {"device_busy_ms_per_step": busy, "nccl_device_ms_per_step": nccl_ms,
+                   "nccl_share_of_device_step": nccl_ms / busy if busy else None,
+                   "wall_ms_per_step": wall_ms / COVID_STEPS}
+    emit({"phase": "mesh_time", "card": smi, "steps": COVID_STEPS, **out["time"],
+          "nccl_kernels": [{"name": e.key[:90], "count": e.count,
+                            "device_ms": e.self_device_time_total / 1e3} for e in nccl],
+          "all_gather_host_calls": [{"name": e.key[:90], "count": e.count,
+                                     "cpu_ms": e.cpu_time_total / 1e3} for e in host]})
+    out["sessions"] = None
+    return out
+
+
+class StateEngine(LLMSplitEngine):
+    """``llm-split`` started from a given canonical state instead of a
+    fresh init (``from_canonical`` copies it into the engine's buffers);
+    the plans and the noise still come from the session's seed."""
+
+    def __init__(self, canonical, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._start_state = canonical
+
+    def init(self, seed: int):
+        self._start(seed)
+        return self.from_canonical(self._start_state)
+
+
+def lm_mesh(dev, smi: str, sess, shards, spec) -> dict:
+    """``<prefix>_mesh``: two ``llm-split`` steps of the session's config at
+    its published width, each run through ``SplitSession`` with and without
+    ``mesh=make_split_mesh(1, 1, n_clients=3)`` from the session's state
+    (its weights, not a second init) and seed 0, dp_release at the cut: the
+    losses, the gradient norms, the weights and the moments bit for bit,
+    the same launches."""
+    canonical = sess._canonical()  # views; each engine copies them
+    res = {}
+    for name, mesh in (("none", None), ("grid", make_split_mesh(1, 1, n_clients=3))):
+        engine = StateEngine(canonical, sess.adapter, sess.config, sess.opt, device=dev,
+                             mesh=mesh)
+        run = SplitSession(sess.adapter, sess.config, sess.opt, engine=engine, seed=0,
+                           device=dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run.fit(shards, epochs=1, steps_per_epoch=2)
+        torch.cuda.synchronize()
+        native = run.native_state
+        res[name] = {"flat": native["flat"], "opt": native["opt"],
+                     "losses": step_losses(run),
+                     "grad_norm": [float(v) for m in run.step_metrics for v in m["grad_norm"]],
+                     "wall_s": time.perf_counter() - t0,
+                     "launches": {k: v["launches"] for k, v in kernel_counts().items()}}
+        del run, engine, native
+    n0, n1 = res["none"], res["grid"]
+    same = (torch.equal(n0["flat"], n1["flat"])
+            and all(torch.equal(n0["opt"][k], n1["opt"][k]) for k in n0["opt"]))
+    if (not same or n0["losses"] != n1["losses"] or n0["grad_norm"] != n1["grad_norm"]
+            or n0["launches"] != n1["launches"]):
+        raise AssertionError(f"{spec.prefix}_mesh: the grid's steps differ from no mesh")
+    if len(n1["losses"]) != 2 or not np.isfinite(n1["losses"]).all():
+        raise AssertionError(f"{spec.prefix}_mesh: losses {n1['losses']}")
+    if n1["launches"]["dp_release"] == 0:
+        raise AssertionError(f"{spec.prefix}_mesh: no dp_release launch")
+    emit({"phase": f"{spec.prefix}_mesh", "card": smi, "config": sess.adapter.cfg.name,
+          "engine": "llm-split", "mesh": "make_split_mesh(1, 1, n_clients=3)", "steps": 2,
+          "bit_identical": True, "losses": n1["losses"], "grad_norm": n1["grad_norm"],
+          "launches": n1["launches"], "wall_s": {k: v["wall_s"] for k, v in res.items()},
+          "peak_gib": peak_gib()})
+    launches = n1["launches"]
+    del res, n0, n1, canonical
+    free_card()
+    return launches
 
 
 def card_line() -> str:
@@ -2989,6 +3200,15 @@ def main() -> None:
     hybrid = hybrid_phase(dev, smi)
     decode, lm, lm_timed = (lm_paths["lm"][k] for k in ("decode", "train", "timed"))
 
+    # ==== the mesh layer: the COVID-CT training and serving paths on a 1x1
+    # grid (a one-rank NCCL group) against no mesh; the group ends with it
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        mesh = mesh_covid(dev, smi, tmp, covid["shards"])
+    release_meshes()
+    emit({"phase": "mesh_wall", "card": smi, "wall_s": time.perf_counter() - t0,
+          "process_group_destroyed": not torch.distributed.is_initialized()})
+
     # ---- kernels: one line for every ported kernel
     rows = [
         ("privacy_conv", "src/repro_torch/csrc/privacy_conv.cu",
@@ -3053,6 +3273,10 @@ def main() -> None:
                          for p, out in lm_paths.items()
                          for phase, key in (("decode", "decode"), ("train", "train"))}
          | {"hybrid_train": hybrid["launches"][name]},
+         # the mesh layer: launches on the 1x1 grid's epoch (calibrated
+         # sigma; equal to no mesh's, checked) and llama's two grid steps
+         "launches_mesh": {"mesh_train": mesh["launches"]["calibrated"]["grid"].get(name, 0),
+                           "lm_mesh": lm["mesh"].get(name, 0)},
          **({f"{p}_{k}": out["timed"][k] for p, out in lm_paths.items()
              for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_second_read")}
             | {f"{p}_max_abs_err": errs[f"dp_release/{p}_cut"] for p in lm_paths}

@@ -1,7 +1,9 @@
 """Tree checkpoints as an npz plus a JSON manifest, in the format of
 ``repro.checkpoint.io``: leaves keyed by their ``"/"``-joined paths.
 
-A checkpoint written by the JAX package loads here and the reverse. The JAX
+A checkpoint written by the JAX package loads here and the reverse. Under a
+mesh every rank holds the whole state, rank 0 writes it, and any mesh (or
+none) reads it back. The JAX
 manifest's ``treedef`` string is specific to JAX, so this side restores by
 the keys alone (``common.bridge.unflatten``) and writes a plain description
 in that field, which the JAX loader does not read.
@@ -18,16 +20,30 @@ import re
 from typing import Any, Optional, Tuple
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.common.bridge import flatten, to_torch, unflatten
 from repro_torch.common.device import resolve_device
 
 
 def save_checkpoint(directory: str, step: int, tree: Any,
-                    metadata: Optional[dict] = None) -> str:
+                    metadata: Optional[dict] = None, mesh=None) -> str:
+    """Write ``tree`` as ``ckpt_<step>.npz`` and its manifest; returns the
+    npz's path. ``mesh``: the tree is the whole state, held by every rank
+    of the mesh's (default) process group; rank 0 writes it and every rank
+    waits at a barrier until the files are in place."""
+    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    if mesh is not None and dist.is_initialized():
+        if dist.get_rank() == 0:
+            _write(directory, path, step, tree, metadata)
+        dist.barrier()
+        return path
+    return _write(directory, path, step, tree, metadata)
+
+
+def _write(directory: str, path: str, step: int, tree: Any, metadata: Optional[dict]) -> str:
     os.makedirs(directory, exist_ok=True)
     flat = flatten(tree)
-    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
     # the tmp name keeps the .npz suffix (np.savez appends one otherwise)
     # while staying invisible to latest_checkpoint's pattern
     tmp_npz = path.replace(".npz", ".tmp.npz")

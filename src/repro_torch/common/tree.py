@@ -40,6 +40,19 @@ def tree_map(fn: Callable[..., Any], tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable[..., Any], tree, path: Tuple[Any, ...] = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, as
+    ``jax.tree_util.tree_map_with_path``: ``path`` is the tuple of dict keys
+    and list or tuple indices from the root to the leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
 def tree_zeros_like(tree):
     return tree_map(torch.zeros_like, tree)
 

@@ -51,6 +51,10 @@ class SplitAdapter:
     # (stacked_banks, cids, xs, noise) -> features [N, b, ...] of N items,
     # item n on bank cids[n]; None: client_forward item by item
     fleet_client_forward: Optional[Callable[..., Any]] = None
+    # (server_params, features, tp) -> outputs: server_forward tensor-parallel
+    # over a mesh's model axis (tp a sharding.tensor_parallel.TrunkParallel);
+    # None: the adapter's trunk has no such path
+    server_forward_tp: Optional[Callable[..., Any]] = None
 
 
 def banked_client_forward(adapter: SplitAdapter, guard=None) -> Callable[..., torch.Tensor]:
@@ -63,10 +67,12 @@ def banked_client_forward(adapter: SplitAdapter, guard=None) -> Callable[..., to
     Each client's privacy layer runs on its own bank (one ``privacy_conv``
     launch a client where the model has the kernel on). The guard's release
     then runs ONCE over the ``[C*b, ...]`` rows: its clip is per row, so
-    that equals a release per client (one ``dp_release`` call a step)."""
+    that equals a release per client (one ``dp_release`` call a step).
+    ``plan_rows``: the whole release's rows where ``banks`` are a rank's
+    share of a mesh's clients (``dp_release``'s plan is chosen for them)."""
     guarded = guard is not None and guard.enabled
 
-    def fwd(banks, xs, model_noise=None, guard_noise=None):
+    def fwd(banks, xs, model_noise=None, guard_noise=None, plan_rows=None):
         feats = torch.stack([
             adapter.client_forward(tree_map(lambda a, c=c: a[c], banks), xs[c],
                                    None if model_noise is None else model_noise[c])
@@ -75,7 +81,7 @@ def banked_client_forward(adapter: SplitAdapter, guard=None) -> Callable[..., to
             return feats
         rows = feats.reshape((-1,) + tuple(feats.shape[2:]))
         noise = None if guard_noise is None else guard_noise.reshape(rows.shape)
-        return guard.release_with_noise(rows, noise).reshape(feats.shape)
+        return guard.release_with_noise(rows, noise, plan_rows).reshape(feats.shape)
 
     return fwd
 
@@ -92,10 +98,11 @@ def fleet_release_forward(adapter: SplitAdapter, guard=None) -> Callable[..., to
     stacked banks. The guard's release then runs ONCE over the ``[N*b,
     ...]`` rows: its clip is per row, so that equals a release per item (one
     ``dp_release`` call a cycle). Per item the result is what
-    ``client_forward`` and the guard give one item."""
+    ``client_forward`` and the guard give one item. ``plan_rows``: the
+    whole cycle's rows where this is a rank's share of a mesh's items."""
     guarded = guard is not None and guard.enabled
 
-    def fwd(banks, cids, xs, model_noise=None, guard_noise=None):
+    def fwd(banks, cids, xs, model_noise=None, guard_noise=None, plan_rows=None):
         if adapter.fleet_client_forward is not None:
             feats = adapter.fleet_client_forward(banks, cids, xs, model_noise)
         else:
@@ -107,7 +114,7 @@ def fleet_release_forward(adapter: SplitAdapter, guard=None) -> Callable[..., to
             return feats
         rows = feats.reshape((-1,) + tuple(feats.shape[2:]))
         noise = None if guard_noise is None else guard_noise.reshape(rows.shape)
-        return guard.release_with_noise(rows, noise).reshape(feats.shape)
+        return guard.release_with_noise(rows, noise, plan_rows).reshape(feats.shape)
 
     return fwd
 
@@ -152,6 +159,7 @@ def cnn_adapter(cfg: CNNConfig) -> SplitAdapter:
         noise_scale=cfg.privacy_noise,
         fleet_client_forward=lambda banks, cids, xs, noise=None: cnn_mod.fleet_client_forward(
             {"client": banks}, cfg, cids, xs, noise),
+        server_forward_tp=lambda sp, f, tp: cnn_mod.server_forward_tp({"server": sp}, cfg, f, tp),
     )
 
 
@@ -175,4 +183,5 @@ def mlp_adapter(cfg: MLPConfig) -> SplitAdapter:
         metrics=metrics,
         feature_shape=lambda shape: mlp_mod.feature_shape(cfg, shape),
         noise_scale=cfg.privacy_noise,
+        server_forward_tp=lambda sp, f, tp: mlp_mod.server_forward_tp({"server": sp}, cfg, f, tp),
     )

@@ -39,9 +39,11 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.tree import ravel, tree_map
+from repro_torch.common.tree import ravel, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapters import SplitAdapter
+from repro_torch.core.trainer import CLIENT_AXIS, MODEL_AXIS, check_mesh
+from repro_torch.launch.mesh import axis_names, mesh_device_type, mesh_shape
 from repro_torch.models import transformer
 from repro_torch.models.layers import softmax_cross_entropy
 from repro_torch.models.model import MOE_AUX_WEIGHT
@@ -49,6 +51,7 @@ from repro_torch.models.transformer import ModelOptions, positions_for
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.privacy.accountant import budget_advance, budget_init
 from repro_torch.privacy.guard import DPConfig, PrivacyGuard
+from repro_torch.sharding.collectives import MeshAxis, gather, gather_chunks_
 
 # elements of the flat buffer a slice of the in-place update takes: the
 # update's temporaries stay a few hundred MB whatever the model's size
@@ -169,9 +172,35 @@ class LLMStepParts(NamedTuple):
     detached: bool
 
 
+def _client_axis(mesh, n_clients: int) -> Optional[MeshAxis]:
+    """The mesh's client axis for the LM step (``None``: no mesh or no
+    client axis). A model axis above 1 raises: the transformer trunk's
+    tensor parallelism (``trunk_specs``' named-leaf rules, which reshape
+    sharded QKV into heads, and the MoE's data-axis dispatch) comes with the
+    port of ``launch/steps``."""
+    if mesh is None:
+        return None
+    names = axis_names(mesh)
+    if MODEL_AXIS in names and mesh_shape(mesh)[MODEL_AXIS] > 1:
+        raise ValueError(
+            f"llm-split over a {MODEL_AXIS!r} axis of size {mesh_shape(mesh)[MODEL_AXIS]}: "
+            "the transformer trunk's tensor parallelism comes in a later slice, with the "
+            "port of launch/steps (launch/dryrun) and the MoE's data-axis dispatch; use "
+            "make_split_mesh(C, 1)")
+    if CLIENT_AXIS not in names:
+        return None
+    size = mesh_shape(mesh)[CLIENT_AXIS]
+    if n_clients % size != 0:
+        raise ValueError(
+            f"n_clients={n_clients} does not divide over mesh axis {CLIENT_AXIS!r} of size "
+            f"{size}; the stacked client banks shard their leading axis evenly")
+    return MeshAxis(mesh, CLIENT_AXIS)
+
+
 def llm_step_parts(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer, n_clients: int, *,
                    grad_clip: float = 1.0, privacy: Optional[DPConfig] = None,
-                   shared_bank: bool = False, mode: str = "detached") -> LLMStepParts:
+                   shared_bank: bool = False, mode: str = "detached",
+                   mesh=None) -> LLMStepParts:
     """The two halves of one guarded step over a flat trainable buffer.
 
     ``grad(flat, unravel, banks, batch, model_noise=None, guard_noise=None)
@@ -187,9 +216,18 @@ def llm_step_parts(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer, n_clien
     clip (``grad`` scaled in place) and the optimizer's update of ``flat``
     and of ``opt_state``'s flat moments, in place, ``UPDATE_SLICE``
     elements at a time (the repo's optimizers are elementwise, so a slice's
-    update is the whole update's, bit for bit)."""
+    update is the whole update's, bit for bit).
+
+    ``mesh`` (a client axis; a model axis of size 1): each rank runs its
+    clients' banks and releases their rows (the guard's plan chosen for all
+    ``C*b`` rows), the features are all-gathered for the trunk, which every
+    rank runs, and in ``e2e`` the banks' gradient rows are all-gathered
+    into the whole flat gradient. ``batch`` is whole on every rank; each
+    reads its clients' rows."""
     cfg = untie(cfg)
     e2e = mode == "e2e"
+    cax = _client_axis(mesh, n_clients)
+    mine = slice(None) if cax is None else cax.rows(n_clients)
     if e2e:
         opts = dataclasses.replace(opts, detach_cut=False)
         if shared_bank:
@@ -199,18 +237,22 @@ def llm_step_parts(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer, n_clien
     guard = PrivacyGuard(privacy)
 
     def loss_fn(server_params, client_banks, batch, model_noise, guard_noise):
-        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        inputs = {k: v[mine] for k, v in batch.items() if k != "labels"}
+        clients = range(n_clients)[mine]
         feats = torch.stack([
             transformer.client_forward(
                 client_banks if shared_bank else tree_map(lambda a, c=c: a[c], client_banks),
-                cfg, {k: v[c] for k, v in inputs.items()}, opts,
+                cfg, {k: v[i] for k, v in inputs.items()}, opts,
                 None if model_noise is None else model_noise[c])[0]
-            for c in range(n_clients)])
-        C, b, S, d = feats.shape
-        h = feats.reshape(C * b, S, d)  # concatenate all features (Alg. 1 l.11)
+            for i, c in enumerate(clients)])
+        c_local, b, S, d = feats.shape
+        C = n_clients
+        h = feats.reshape(c_local * b, S, d)  # concatenate all features (Alg. 1 l.11)
         if guard.enabled:
-            noise = None if guard_noise is None else guard_noise.reshape(h.shape)
-            h = guard.release_with_noise(h, noise)
+            noise = None if guard_noise is None else guard_noise[mine].reshape(h.shape)
+            h = guard.release_with_noise(h, noise, None if cax is None else C * b)
+        if cax is not None:
+            h = gather(h, cax, 0)
         labels = batch["labels"].reshape(C * b, -1)
         logits, aux = transformer.server_forward(server_params, cfg, h,
                                                  positions_for(C * b, S, h.device), opts)
@@ -224,6 +266,9 @@ def llm_step_parts(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer, n_clien
             server, cb = (tr, banks) if not e2e else (tr["server"], tr["client_banks"])
             loss, ce = loss_fn(server, cb, batch, model_noise, guard_noise)
             (g,) = torch.autograd.grad(loss, fl)
+        if cax is not None and e2e:
+            with torch.no_grad():
+                gather_chunks_([(v, 0) for v in tree_leaves(unravel(g)["client_banks"])], cax)
         return g, {"loss": loss.detach(), "ce": ce.detach()}
 
     def apply(flat, opt_state, step, g):
@@ -257,12 +302,14 @@ def make_guarded_llm_step(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer,
     ``PrivacyGuard`` release at the cut; the reference's step with the
     noise as inputs in place of its key. ``state`` is left as it was. The
     budget advances one release a step when the guard is on.
-    ``mode="e2e"`` (classic split learning) returns gradients to the banks;
-    ``mesh=`` is not ported and raises."""
+    ``mode="e2e"`` (classic split learning) returns gradients to the banks.
+    ``mesh``: the client axis shards the banks' work (a shared bank stays
+    whole); a model axis of size 1 is the identity, one above 1 raises
+    (``llm_step_parts``)."""
     if mesh is not None:
-        raise ValueError("mesh= is not ported yet: the port trains on one device")
+        check_mesh(mesh, mesh_device_type(mesh) or "cpu", client_axis=None)
     parts = llm_step_parts(cfg, opts, opt, n_clients, grad_clip=grad_clip, privacy=privacy,
-                           shared_bank=shared_bank, mode=mode)
+                           shared_bank=shared_bank, mode=mode, mesh=mesh)
     guard = PrivacyGuard(privacy)
 
     def step(state, batch, model_noise=None, guard_noise=None):

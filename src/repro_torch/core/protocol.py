@@ -28,26 +28,34 @@ else from the client's own CPU ``torch.Generator``, release by release, so
 a fleet cycle and the per-item path consume each client's stream in the
 same order.
 
-The reference's deprecated ``run_protocol`` shim is not ported: use
-``SplitSession(engine="protocol-async")``.
+Under a mesh (``launch.mesh``) every rank runs the whole drive, whose
+order is deterministic: each rank holds every client's sampling RNG and
+noise stream and draws every item, runs the privacy layers of its own
+clients only, and the releases are gathered over the client axis, so every
+rank's queue sees every item. The trunk steps tensor-parallel over a model
+axis above 1 (``trainer.make_server_step``).
 """
 from __future__ import annotations
 
 import collections
 import threading
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device, seeded_generator
+from repro_torch.common.tree import tree_leaves
 from repro_torch.core.adapters import SplitAdapter, fleet_release_forward
 from repro_torch.core.faults import ClientLoopError, FaultRun
 from repro_torch.core.queue import FeatureQueue, FeatureSlice, as_tensor
-from repro_torch.core.trainer import make_server_step, stack_pytrees
+from repro_torch.core.trainer import CLIENT_AXIS, make_server_step, stack_pytrees
+from repro_torch.launch.mesh import axis_names
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.privacy.guard import PrivacyGuard
+from repro_torch.sharding.collectives import MeshAxis
 
 # (client_id, release, model_shape, guard_shape) -> (model noise, guard noise)
 NoiseFn = Callable[[int, int, Tuple[int, ...], Tuple[int, ...]], Tuple[Any, Any]]
@@ -122,13 +130,20 @@ class SplitClient:
     not the queue took it, for the (ε, δ) accountant. ``as_numpy=False``
     keeps the released features on the device (the fused-queue engine); with
     ``True`` each release is copied to the host, the queue being a host
-    object (protocol-async)."""
+    object (protocol-async).
+
+    ``axis`` (a ``MeshAxis`` of the client axis) and ``owner`` (the index
+    along it of the rank that holds this client): every rank samples and
+    draws the noise, the owner alone runs the privacy layer, and the
+    release is broadcast over the axis."""
 
     def __init__(self, client_id: int, adapter: SplitAdapter, client_params,
                  data: Tuple[np.ndarray, np.ndarray], batch: int, noise_seed: int = 0, *,
                  guard: Optional[PrivacyGuard] = None, fwd=None,
-                 noise: Optional[ReleaseNoise] = None, as_numpy: bool = True, device=None):
+                 noise: Optional[ReleaseNoise] = None, as_numpy: bool = True, device=None,
+                 axis: Optional[MeshAxis] = None, owner: int = 0):
         self.client_id = client_id
+        self.axis, self.owner = axis, owner
         self.adapter = adapter
         self.params = client_params  # never leaves this object
         self.x, self.y = data
@@ -154,9 +169,19 @@ class SplitClient:
         xb, yb = self.sample_batch()
         self.releases += 1
         model_noise, guard_noise = self.noise.draw(self.releases, xb.shape)
-        features = self._fwd(self.params, torch.as_tensor(xb, device=self.device),
-                             model_noise, guard_noise)
+        if self.axis is None or self.axis.index == self.owner:
+            features = self._fwd(self.params, torch.as_tensor(xb, device=self.device),
+                                 model_noise, guard_noise)
+        else:
+            features = torch.empty(self.adapter.feature_shape(tuple(xb.shape)),
+                                   dtype=_dtype_of(self.params), device=self.device)
+        if self.axis is not None:
+            features = self.axis.broadcast(features.contiguous(), self.owner)
         return (features.cpu().numpy() if self._as_numpy else features), yb
+
+
+def _dtype_of(params) -> torch.dtype:
+    return tree_leaves(params)[0].dtype
 
 
 class FleetProducer:
@@ -176,13 +201,26 @@ class FleetProducer:
       3. runs ONE :func:`make_fleet_release_fwd` call;
       4. returns the items in per-item production order as ``(client_id,
          FeatureSlice, labels)``, row views of the one release tensor.
+
+    ``mesh`` (with a ``"clients"`` axis): the banks of this rank's clients
+    alone are stacked; a cycle runs one fleet forward over this rank's
+    items (the guard's plan chosen for the whole cycle's rows), and one
+    all-gather over the client axis assembles the cycle's releases in
+    production order on every rank. ``dispatches`` counts this rank's
+    forwards.
     """
 
-    def __init__(self, clients: Sequence[SplitClient], fleet_fwd, *, chunk: int = 8):
+    def __init__(self, clients: Sequence[SplitClient], fleet_fwd, *, chunk: int = 8,
+                 mesh=None):
         self.clients = list(clients)
         self.chunk = int(chunk)  # the threaded drive's items a dispatch
         self._fwd = fleet_fwd
-        self._banks = stack_pytrees([c.params for c in self.clients])
+        self.axis = (MeshAxis(mesh, CLIENT_AXIS)
+                     if mesh is not None and CLIENT_AXIS in axis_names(mesh) else None)
+        self._mine = (slice(None) if self.axis is None
+                      else self.axis.rows(len(self.clients)))
+        self._banks = stack_pytrees([c.params for c in self.clients[self._mine]])
+        self._lo = self._mine.start or 0
         self.device = self.clients[0].device
         self.dispatches = 0  # fleet forwards run; client threads add under the lock
         self._lock = threading.Lock()
@@ -204,15 +242,39 @@ class FleetProducer:
                 guard.append(g)
         if not cids:
             return collections.deque()
-        stack = lambda ts: None if ts[0] is None else torch.stack(ts)  # noqa: E731
-        feats = self._fwd(self._banks,
-                          torch.tensor(cids, dtype=torch.int32, device=self.device),
-                          torch.as_tensor(np.stack(xs), device=self.device),
-                          stack(model), stack(guard))
-        with self._lock:
-            self.dispatches += 1
+        if self.axis is None:
+            feats = self._forward(cids, xs, model, guard, None)
+        else:
+            # this rank's items are one run of the cycle (clients in order)
+            width = len(self.clients) // self.axis.size
+            per_rank = [sum(int(c) for c in counts[r * width:(r + 1) * width])
+                        for r in range(self.axis.size)]
+            lo = sum(per_rank[: self.axis.index])
+            mine = slice(lo, lo + per_rank[self.axis.index])
+            b = xs[0].shape[0]
+            if per_rank[self.axis.index]:
+                local = self._forward(cids[mine], xs[mine], model[mine], guard[mine],
+                                      len(cids) * b)
+            else:
+                client = self.clients[0]
+                shape = client.adapter.feature_shape((b,) + tuple(xs[0].shape[1:]))
+                local = torch.empty((0,) + tuple(shape), dtype=_dtype_of(self._banks),
+                                    device=self.device)
+            feats = self.axis.gather_ragged(local, per_rank)
         return collections.deque((cid, FeatureSlice(feats, i), labels[i])
                                  for i, cid in enumerate(cids))
+
+    def _forward(self, cids, xs, model, guard, plan_rows):
+        """One fleet forward over these items, on this rank's banks."""
+        stack = lambda ts: None if ts[0] is None else torch.stack(ts)  # noqa: E731
+        local_ids = torch.tensor([c - self._lo for c in cids], dtype=torch.int32,
+                                 device=self.device)
+        args = (self._banks, local_ids, torch.as_tensor(np.stack(xs), device=self.device),
+                stack(model), stack(guard))
+        feats = self._fwd(*args, plan_rows=plan_rows)
+        with self._lock:
+            self.dispatches += 1
+        return feats
 
     def produce_for(self, client: SplitClient, n: int) -> collections.deque:
         """Threaded drive: ``n`` upcoming items of ONE client in one
@@ -223,11 +285,12 @@ class FleetProducer:
 class SplitServer:
     """The centralized server: trunk parameters, optimizer and the feature
     queue; one trunk update a pop (``trainer.make_server_step``, the step
-    the fused-queue replay calls too)."""
+    the fused-queue replay calls too). ``mesh``: the step runs the trunk
+    tensor-parallel over a model axis above 1."""
 
     def __init__(self, adapter: SplitAdapter, server_params, opt: Optimizer,
                  queue: FeatureQueue, clip_norm: float = 1.0, opt_state=None,
-                 step_count: int = 0, *, step_fn=None, device=None):
+                 step_count: int = 0, *, step_fn=None, device=None, mesh=None):
         self.adapter = adapter
         self.params = server_params
         self.opt = opt
@@ -237,7 +300,7 @@ class SplitServer:
         self.losses: List[float] = []
         self.device = resolve_device(device)
         self._step = step_fn if step_fn is not None else make_server_step(adapter, opt,
-                                                                          clip_norm)
+                                                                          clip_norm, mesh)
 
     def train_one(self, timeout: float = 1.0, retries: int = 0,
                   backoff: float = 2.0) -> Optional[float]:
@@ -530,3 +593,35 @@ def drive_protocol(
                 stalled_cycles = 0 if made_progress else stalled_cycles + 1
     return {"dropped": dropped, "drained": drained,
             "halted": faults.halted if faults is not None else False}
+
+
+def run_protocol(adapter: SplitAdapter, shards: Sequence[Tuple[np.ndarray, np.ndarray]],
+                 opt: Optimizer, *, total_server_steps: int, client_batch: int = 32,
+                 data_shares: Optional[Sequence[float]] = None, queue_size: int = 64,
+                 seed: int = 0, threaded: bool = True, device=None) -> Dict[str, Any]:
+    """DEPRECATED: use ``repro_torch.core.session.SplitSession`` with
+    ``engine="protocol-async"``; delegates to it. Returns the legacy result
+    dict."""
+    warnings.warn(
+        "run_protocol is deprecated; use SplitSession(engine='protocol-async')",
+        DeprecationWarning, stacklevel=2,
+    )
+    from repro_torch.core.session import SplitSession
+    from repro_torch.core.trainer import SplitTrainConfig
+
+    n = len(shards)
+    shares = tuple(data_shares or [1.0 / n] * n)
+    session = SplitSession(
+        adapter, SplitTrainConfig(n_clients=n, data_shares=shares), opt,
+        engine="protocol-async", seed=seed, device=device, threaded=threaded,
+        client_batch=client_batch, queue_size=queue_size,
+    )
+    session.fit(shards, epochs=1, steps_per_epoch=total_server_steps)
+    native = session.native_state
+    return {
+        "server_params": native["server"],
+        "client_params": list(native["client_banks"]),
+        "losses": session.engine.losses,
+        "queue_stats": session.engine.stats,
+        "server_steps": int(native["step"]),
+    }

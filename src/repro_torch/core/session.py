@@ -26,8 +26,23 @@ empty and its ``step`` counts rounds, as in the reference, so their
 checkpoints cross with the JAX package's, and ``llm-split``, the LM split
 workload (``core.distributed``) for the attention-only transformer
 families. ``audit_privacy`` runs the inversion attack (``privacy.audit``)
-on a client's trained bank. The reference's ``mesh=`` is not ported yet
-and raises a ``ValueError``.
+on a client's trained bank.
+
+``mesh=`` takes a ``DeviceMesh`` from ``launch.mesh``: a 1-D client mesh
+(``make_client_mesh``) or the 2-D ``("clients", "model")`` grid
+(``make_split_mesh``), on the session's device type, for the fused engines,
+the queue engines and ``llm-split`` (``looped-ref`` and ``fedavg`` refuse
+it, as the reference's do). Every rank runs the same session (one process a
+rank, SPMD) and holds the canonical state whole: each rank runs its
+clients' privacy layers and the releases are all-gathered over the client
+axis, the trunk runs tensor-parallel over a model axis above 1, and every
+rank completes the gradient and takes the same optimizer step, so the
+state stays identical across ranks and ``save`` writes it from rank 0.
+Every rank holds the epoch data whole and draws the epoch's whole plan
+from the same seed, and each step reads its clients' rows of them, so the
+noise is the same for every layout and no placement step is needed (the
+reference's ``_place`` lays its arrays out across devices); a ``(1, 1)``
+grid is bit for bit no mesh.
 
 Randomness. The JAX engines fold an epoch key out of ``PRNGKey(seed)``;
 here every draw comes from a CPU ``torch.Generator`` seeded with the first
@@ -68,9 +83,11 @@ from repro_torch.core.distributed import (
 from repro_torch.core.faults import ClientLoopError, FaultPlan
 from repro_torch.core.queue import FeatureBank, FeatureQueue
 from repro_torch.core.trainer import (
+    CLIENT_AXIS,
     SamplePlan,
     SplitTrainConfig,
     _client_banks_list,
+    check_mesh,
     client_weights,
     device_put_shards,
     evaluate_per_client,
@@ -85,6 +102,7 @@ from repro_torch.core.trainer import (
     stack_pytrees,
     unstack_pytree,
 )
+from repro_torch.launch.mesh import axis_names, mesh_shape
 from repro_torch.optim.optimizers import Optimizer
 from repro_torch.privacy.accountant import (
     budget_advance,
@@ -94,6 +112,7 @@ from repro_torch.privacy.accountant import (
 )
 from repro_torch.privacy.audit import guard_noise_sweep
 from repro_torch.privacy.guard import PrivacyGuard
+from repro_torch.sharding.collectives import MeshAxis
 
 Shards = Sequence[Tuple[np.ndarray, np.ndarray]]
 EvalFn = Optional[Callable[[Any], Dict[str, float]]]
@@ -168,17 +187,20 @@ class FusedEngine(_Engine):
     ``make_epoch_runner`` steps. Native state IS the canonical state.
     ``unroll`` is the reference's option (8 by default), checked as its
     ``lax.scan`` checks it and kept: an epoch here is a Python loop, which
-    has nothing to unroll, so it changes no arithmetic."""
+    has nothing to unroll, so it changes no arithmetic. ``mesh``: both
+    axes, the client banks' work over ``"clients"``, the trunk
+    tensor-parallel over ``"model"`` (``trainer._make_fused``)."""
 
-    def __init__(self, adapter, tc, opt, *, device=None, mode: Optional[str] = None,
-                 unroll: int = 8):
+    def __init__(self, adapter, tc, opt, *, device=None, mesh=None,
+                 mode: Optional[str] = None, unroll: int = 8):
         if mode not in (None, "scan", "stepwise"):
             raise ValueError(f"mode must be None, 'scan' or 'stepwise', got {mode!r}")
         self.unroll = check_unroll(unroll)
         super().__init__(adapter, tc, opt, device)
         self.name = "auto" if mode is None else f"fused-{mode}"
         self.mode = mode or "scan"
-        self._init_state, _ = make_spatio_temporal_step(adapter, tc, opt, self.device)
+        self.mesh = mesh
+        self._init_state, _ = make_spatio_temporal_step(adapter, tc, opt, self.device, mesh)
         self._runners: Dict[int, Callable] = {}
 
     def init(self, seed: int):
@@ -188,12 +210,13 @@ class FusedEngine(_Engine):
         run_epoch = self._runners.get(steps_per_epoch)
         if run_epoch is None:
             _, run_epoch = make_epoch_runner(self.adapter, self.tc, self.opt, steps_per_epoch,
-                                             mode=self.mode, device=self.device)
+                                             mode=self.mode, device=self.device, mesh=self.mesh)
             self._runners[steps_per_epoch] = run_epoch
         data_x, data_y, lens = device_put_shards(shards, self.device)
+        sample_shape = data_x.shape[2:]
         history, self.step_metrics = [], []
         for ep in range(epochs):
-            plan = self._next_plan(steps_per_epoch, lens, data_x.shape[2:])
+            plan = self._next_plan(steps_per_epoch, lens, sample_shape)
             state, ms = run_epoch(state, data_x, data_y, plan)
             self.step_metrics.append(_readout(ms))  # one readout an epoch
             history.append(_record(ep, self.step_metrics[-1], eval_fn, state))
@@ -226,7 +249,9 @@ class LoopedEngine(_Engine):
 
     name = "looped-ref"
 
-    def __init__(self, adapter, tc, opt, *, device=None):
+    def __init__(self, adapter, tc, opt, *, device=None, mesh=None):
+        if mesh is not None:
+            raise ValueError("looped-ref does not support mesh=; use a fused engine")
         super().__init__(adapter, tc, opt, device)
         self.detached = tc.mode == "detached"
         self._init_state, self._step = make_looped_step(adapter, tc, opt, self.device)
@@ -298,7 +323,16 @@ class ProtocolEngine:
     card) and ``noise_fn``, ``(client_id, release, model_shape, guard_shape)
     -> (model_noise, guard_noise)`` in place of the clients' generators
     (``protocol.ReleaseNoise``); it is read at each ``run``, so a caller
-    that needs draws keyed on the run's start step sets it before a fit."""
+    that needs draws keyed on the run's start step sets it before a fit.
+
+    ``mesh`` splits the protocol across both axes of the cut: each rank
+    runs its own clients' releases (fleet production: one forward a cycle
+    over its banks, then one all-gather; per item: the owner's release,
+    broadcast), and every pop's trunk update runs tensor-parallel over a
+    model axis above 1. The queue, the trust boundary, stays a host object
+    that every rank drives in the same order. ``threaded=True`` refuses a
+    mesh: its client threads would issue the collectives in no fixed
+    order."""
 
     name = "protocol-async"
     # clients keep host-NumPy releases here; the fused-queue subclass flips it
@@ -308,10 +342,28 @@ class ProtocolEngine:
     supports_faults = True
 
     def __init__(self, adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, *,
-                 device=None, threaded: bool = False, client_batch: Optional[int] = None,
+                 device=None, mesh=None, threaded: bool = False,
+                 client_batch: Optional[int] = None,
                  queue_size: int = 64, per_client_cap: Optional[int] = None,
                  production: str = "fleet", fleet_chunk: int = 8, pop_timeout: float = 1.0,
                  pop_retries: int = 0, pop_backoff: float = 2.0, noise_fn=None):
+        self.device = resolve_device(device)
+        self.mesh, self._cax = mesh, None
+        if mesh is not None:
+            check_mesh(mesh, self.device, client_axis=None)
+            if CLIENT_AXIS in axis_names(mesh):
+                size = mesh_shape(mesh)[CLIENT_AXIS]
+                if tc.n_clients % size != 0:
+                    raise ValueError(
+                        f"n_clients={tc.n_clients} does not divide over mesh axis "
+                        f"{CLIENT_AXIS!r} of size {size}; the stacked client banks shard "
+                        "their leading axis evenly")
+                self._cax = MeshAxis(mesh, CLIENT_AXIS)
+            if threaded:
+                raise ValueError(
+                    "threaded=True does not run across ranks: its client threads would "
+                    "issue the mesh's collectives in no fixed order; use threaded=False "
+                    "(the deterministic drive) with mesh=")
         if tc.mode != "detached":
             raise ValueError(
                 f"{self.name} trains the server trunk only (the paper's "
@@ -332,7 +384,6 @@ class ProtocolEngine:
             # a shrinking backoff would busy-wait the starved consumer
             raise ValueError(f"pop_backoff must be >= 1.0, got {pop_backoff}")
         self.adapter, self.tc, self.opt = adapter, tc, opt
-        self.device = resolve_device(device)
         self.threaded = threaded
         self.client_batch = client_batch or fused_client_batch(tc)
         self.queue_size, self.per_client_cap = queue_size, per_client_cap
@@ -345,7 +396,7 @@ class ProtocolEngine:
         # are arguments), the fleet-batched one, and the per-pop step
         self._client_fwd = protocol_mod.make_client_release_fwd(adapter, self.guard)
         self._fleet_fwd = protocol_mod.make_fleet_release_fwd(adapter, self.guard)
-        self._server_step = make_server_step(adapter, opt, tc.grad_clip)
+        self._server_step = make_server_step(adapter, opt, tc.grad_clip, mesh)
         self.losses: List[float] = []
         self.stats: Dict[str, Any] = {}
         self.fault_stats: Dict[str, Any] = {}
@@ -374,6 +425,7 @@ class ProtocolEngine:
         """The fleet, seeded from the consumed server step; shared verbatim
         by protocol-async and fused-queue."""
         step = int(state["step"])
+        per_rank = self.tc.n_clients // (1 if self._cax is None else self._cax.size)
         return [
             protocol_mod.SplitClient(
                 c, self.adapter, state["client_banks"][c],
@@ -384,6 +436,7 @@ class ProtocolEngine:
                                                 seed=self._seed, step=step,
                                                 noise_fn=self.noise_fn),
                 as_numpy=self._client_as_numpy, device=self.device,
+                axis=self._cax, owner=c // per_rank,
             )
             for c in range(self.tc.n_clients)
         ]
@@ -401,7 +454,8 @@ class ProtocolEngine:
         for the run: these engines are detached), or ``None`` per item."""
         if self.production != "fleet":
             return None
-        return protocol_mod.FleetProducer(clients, self._fleet_fwd, chunk=self.fleet_chunk)
+        return protocol_mod.FleetProducer(clients, self._fleet_fwd, chunk=self.fleet_chunk,
+                                          mesh=self.mesh)
 
     def _consume_epoch(self, consumer, clients, queue, shares, steps_per_epoch,
                        fleet=None, faults=None):
@@ -691,7 +745,7 @@ class LLMSplitEngine(_Engine):
     updates_in_place = True
 
     def __init__(self, adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, *,
-                 device=None, shared_bank: bool = False):
+                 device=None, mesh=None, shared_bank: bool = False):
         if not isinstance(adapter, LLMSplitAdapter) or adapter.cfg is None:
             raise ValueError(
                 "llm-split needs an adapter built by "
@@ -700,6 +754,9 @@ class LLMSplitEngine(_Engine):
         if tc.mode not in ("detached", "e2e"):
             raise ValueError(f"unknown mode {tc.mode!r}")
         super().__init__(adapter, tc, opt, device)
+        if mesh is not None:
+            check_mesh(mesh, self.device, client_axis=None)
+        self.mesh = mesh
         self.shared_bank = shared_bank
         # evaluate() scores one bank and repeats the row when it is shared
         self.identical_banks = shared_bank
@@ -707,7 +764,7 @@ class LLMSplitEngine(_Engine):
         # raises for e2e with a shared bank
         self.parts = llm_step_parts(adapter.cfg, adapter.opts, opt, tc.n_clients,
                                     grad_clip=tc.grad_clip, privacy=tc.privacy,
-                                    shared_bank=shared_bank, mode=tc.mode)
+                                    shared_bank=shared_bank, mode=tc.mode, mesh=mesh)
         self._unravel = None
 
     def _native_state(self, banks, server, opt_state, step, privacy):
@@ -732,11 +789,12 @@ class LLMSplitEngine(_Engine):
         if len(shards) != self.tc.n_clients:
             raise ValueError(f"{len(shards)} shards for n_clients={self.tc.n_clients}")
         data_x, data_y, lens = device_put_shards(shards, self.device)
+        sample_shape = data_x.shape[2:]
         rows = torch.arange(self.tc.n_clients, device=self.device)[:, None]
         banks, flat, opt_state = state["client_banks"], state["flat"], state["opt"]
         history, self.step_metrics = [], []
         for ep in range(epochs):
-            plan = self._next_plan(steps_per_epoch, lens, data_x.shape[2:])
+            plan = self._next_plan(steps_per_epoch, lens, sample_shape)
             step, priv = state["step"], state["privacy"]
             ms = []
             for t in range(steps_per_epoch):
@@ -781,20 +839,19 @@ class LLMSplitEngine(_Engine):
 class SplitSession:
     """The unified engine surface.
 
-    ``SplitSession(adapter, config, opt, engine="auto", seed=0,
+    ``SplitSession(adapter, config, opt, engine="auto", mesh=None, seed=0,
     device=None, **engine_options)``: ``engine`` is a registry name (see
-    ``available_engines()``) or a prebuilt engine; ``device`` ``None`` is
-    the card (it raises without one), and the tests pass ``"cpu"``;
-    ``engine_options`` go to the engine factory (``threaded=``,
-    ``production=``, ``queue_size=``, ... for the queue engines).
+    ``available_engines()``) or a prebuilt engine; ``mesh`` a
+    ``launch.mesh`` mesh on ``device``'s type (see the module docstring);
+    ``device`` ``None`` is the card (it raises without one), and the tests
+    pass ``"cpu"``; ``engine_options`` go to the engine factory
+    (``threaded=``, ``production=``, ``queue_size=``, ... for the queue
+    engines).
     """
 
     def __init__(self, adapter: SplitAdapter, config: SplitTrainConfig,
                  opt: Optimizer, engine: Any = "auto", *, mesh=None, seed: int = 0,
                  device=None, **engine_options):
-        if mesh is not None:
-            raise ValueError("mesh= is not ported yet: the port trains on one device "
-                             f"(device=...) with the engines {available_engines()}")
         self.adapter, self.config, self.opt = adapter, config, opt
         self.device = resolve_device(device)
         if isinstance(engine, str):
@@ -802,10 +859,11 @@ class SplitSession:
             if factory is None:
                 raise ValueError(f"engine {engine!r} is unknown; available: "
                                  f"{available_engines()}")
-            engine = factory(adapter, config, opt, device=self.device, **engine_options)
-        elif engine_options:
-            raise ValueError("engine options apply only when engine is a registry name; "
-                             "configure the prebuilt engine instance directly")
+            engine = factory(adapter, config, opt, device=self.device, mesh=mesh,
+                             **engine_options)
+        elif mesh is not None or engine_options:
+            raise ValueError("mesh= and engine options apply only when engine is a registry "
+                             "name; configure the prebuilt engine instance directly")
         self.engine = engine
         self.seed = seed
         self.guard = PrivacyGuard(config.privacy)
@@ -896,7 +954,8 @@ class SplitSession:
         from repro_torch.serving.server import SplitInferenceServer
 
         server = SplitInferenceServer(self.adapter, self.state, guard=self.guard,
-                                      seed=self.seed, device=self.device, **server_options)
+                                      seed=self.seed, device=self.device,
+                                      mesh=getattr(self.engine, "mesh", None), **server_options)
         report = server.serve(trace, shards)
         released = max(report.releases_per_client, default=0)
         if self.guard.enabled and released:
@@ -934,7 +993,9 @@ class SplitSession:
 
     def save(self, directory: str, metadata: Optional[dict] = None) -> str:
         """Checkpoint the canonical state (``checkpoint/io``), with the
-        engine's epoch count so that ``restore`` continues the schedule."""
+        engine's epoch count so that ``restore`` continues the schedule.
+        Under a mesh every rank holds the whole state: rank 0 writes it and
+        the others wait for the write."""
         state = self._canonical()
         meta = {"engine": self.engine.name, "adapter": self.adapter.name,
                 "n_clients": self.config.n_clients,
@@ -943,13 +1004,16 @@ class SplitSession:
         epochs_done = getattr(self.engine, "_epochs_done", None)
         if epochs_done is not None:  # the queue engines' schedule runs on the step
             meta["epochs_done"] = epochs_done
-        return save_checkpoint(directory, int(state["step"]), state, meta)
+        return save_checkpoint(directory, int(state["step"]), state, meta,
+                               mesh=getattr(self.engine, "mesh", None))
 
     def restore(self, path: str) -> dict:
         """Load a canonical checkpoint (this session's state is the
         template: keys, shapes and dtypes) and adopt it, with the epoch
         count it was saved at; returns the manifest. A checkpoint of the JAX
-        package loads the same way."""
+        package loads the same way, and one saved under any mesh (or none)
+        loads under this session's: every rank reads it whole, and the next
+        fit places it."""
         state, manifest = load_checkpoint(path, self.device, like=self._canonical())
         self._native = self.engine.from_canonical(state)
         epochs_done = manifest.get("metadata", {}).get("epochs_done")

@@ -49,6 +49,7 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import ravel, tree_leaves, tree_map
+from repro_torch.launch.mesh import axis_names, mesh_device_type, mesh_shape
 from repro_torch.core.adapters import (
     SplitAdapter,
     banked_client_forward,
@@ -58,6 +59,88 @@ from repro_torch.core.adapters import (
 from repro_torch.optim.optimizers import Optimizer, apply_updates, clip_by_global_norm
 from repro_torch.privacy.accountant import budget_advance, budget_init
 from repro_torch.privacy.guard import DPConfig, PrivacyGuard
+from repro_torch.sharding.collectives import MeshAxis, gather, gather_chunks_
+from repro_torch.sharding.tensor_parallel import TrunkParallel
+
+# Mesh axis the canonical state's leading client dimension shards over
+# (``SplitSession(mesh=...)``, ``launch.mesh.make_client_mesh``).
+CLIENT_AXIS = "clients"
+# Mesh axis the server TRUNK shards over, tensor-parallel (the second axis
+# of ``launch.mesh.make_split_mesh`` grids; ``sharding.specs.trunk_specs``).
+MODEL_AXIS = "model"
+
+
+def check_mesh(mesh, device, n_clients: Optional[int] = None,
+               client_axis: Optional[str] = CLIENT_AXIS) -> None:
+    """Raise unless ``mesh`` is a ``DeviceMesh`` the engines can run on: on
+    ``device``'s type, with a ``client_axis`` (where one is required) over
+    which ``n_clients`` divides (where given)."""
+    names = axis_names(mesh)
+    if mesh_device_type(mesh) is None:
+        raise ValueError("mesh= takes a DeviceMesh (launch.mesh.make_client_mesh or "
+                         "make_split_mesh); a shape-only mesh has no ranks to run on")
+    if mesh_device_type(mesh) != torch.device(device).type:
+        raise ValueError(f"the mesh lives on {mesh_device_type(mesh)!r} devices but "
+                         f"device={str(device)!r}; build the mesh with the session's "
+                         "device type")
+    if client_axis is None:
+        return
+    if client_axis not in names:
+        raise ValueError(
+            f"mesh axes {names} have no {client_axis!r} axis; build the mesh with "
+            f"launch.mesh.make_client_mesh or make_split_mesh")
+    size = mesh_shape(mesh)[client_axis]
+    if n_clients is not None and n_clients % size != 0:
+        raise ValueError(
+            f"n_clients={n_clients} does not divide over mesh axis {client_axis!r} of "
+            f"size {size}; the stacked client banks shard their leading axis evenly")
+
+
+def _trunk_sharder(mesh, axis: str = MODEL_AXIS) -> Optional[TrunkParallel]:
+    """The trunk's tensor parallelism over the mesh's model axis
+    (``sharding.tensor_parallel.TrunkParallel``: Megatron column/row layers
+    following ``trunk_specs``), or ``None``, the identity, where there is no
+    mesh, no model axis, or the axis has size 1: that keeps the 1x1 and Nx1
+    meshes bit for bit the unsharded engines."""
+    if mesh is None or axis not in axis_names(mesh) or mesh_shape(mesh)[axis] == 1:
+        return None
+    if mesh_device_type(mesh) is None:
+        raise ValueError("a shape-only mesh has no ranks to run the trunk on")
+    return TrunkParallel(mesh, axis)
+
+
+def _server_forward(adapter: SplitAdapter, tp: Optional[TrunkParallel]):
+    """``(server_params, features) -> outputs``: the adapter's trunk, or its
+    tensor-parallel version under ``tp``."""
+    if tp is None:
+        return adapter.server_forward
+    if adapter.server_forward_tp is None:
+        raise ValueError(f"adapter {adapter.name!r} has no tensor-parallel trunk; use a "
+                         f"mesh whose {tp.name!r} axis has size 1")
+    return lambda sp, f: adapter.server_forward_tp(sp, f, tp)
+
+
+def _shard_banked_forward(fwd, mesh, client_axis: str, n_clients: int):
+    """``banked_client_forward`` over the mesh's client axis, the port's
+    ``shard_map``: ``sharded(banks, xs, model_noise=None, guard_noise=None)
+    -> features [C, b, ...]`` with ``banks``, ``xs`` and the noise whole
+    (leading axis ``n_clients``; every rank holds them and reads its own
+    clients' rows). Each rank runs ``fwd`` on its ``n_clients / C`` banks,
+    data and noise (the guard's plan chosen for the whole release's rows),
+    and the features are all-gathered for the trunk. The gather's backward
+    returns each rank its own clients' gradient, so ``mode="e2e"`` trains
+    every bank on its rank. On one rank the gather is a copy: the path is
+    the same, collective included."""
+    ax = MeshAxis(mesh, client_axis)
+    rows = ax.rows(n_clients)
+    cut = lambda t: None if t is None else t[rows]  # noqa: E731
+
+    def sharded(banks, xs, model_noise=None, guard_noise=None):
+        feats = fwd(tree_map(lambda a: a[rows], banks), xs[rows], cut(model_noise),
+                    cut(guard_noise), plan_rows=n_clients * xs.shape[1])
+        return gather(feats, ax, 0)
+
+    return sharded
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,14 +326,31 @@ def make_sample_plan(adapter: SplitAdapter, tc: SplitTrainConfig, steps_per_epoc
 
 
 # ------------------------------------------------------------------ steps
-def _make_fused(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, device=None):
+def _make_fused(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, device=None,
+                mesh=None, client_axis: str = CLIENT_AXIS):
     """Shared core of the fused engine: (init_state, step_core,
-    trainable_of, with_trainable, step_flat)."""
+    trainable_of, with_trainable, step_flat).
+
+    ``mesh`` (a ``launch.mesh`` client or split mesh): each rank runs its
+    clients' privacy layers and the features are gathered
+    (``_shard_banked_forward``); the trunk runs tensor-parallel over a model
+    axis above 1 (``_trunk_sharder``). The flat buffer and its moments stay
+    whole on every rank: a step's gradient comes back with this rank's
+    chunks (its clients' banks, its trunk shards), one all-gather an axis
+    completes it, and the clip and the update run the unsharded op sequence
+    on every rank."""
     device = resolve_device(device)
     detached = tc.mode == "detached"
     weights = client_weights(tc, device)
     guard = PrivacyGuard(tc.privacy)
     fwd = banked_client_forward(adapter, guard=guard)
+    cax = None
+    if mesh is not None:
+        check_mesh(mesh, device, tc.n_clients, client_axis)
+        fwd = _shard_banked_forward(fwd, mesh, client_axis, tc.n_clients)
+        cax = MeshAxis(mesh, client_axis)
+    tp = _trunk_sharder(mesh)
+    server_fwd = _server_forward(adapter, tp)
     loss_banked = per_client_loss(adapter)
     metrics_banked = per_client_metrics(adapter)
 
@@ -275,7 +375,7 @@ def _make_fused(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, dev
         if detached:
             feats = feats.detach()
         c, b = feats.shape[0], feats.shape[1]
-        out = adapter.server_forward(server_params, feats.reshape((c * b,) + feats.shape[2:]))
+        out = server_fwd(server_params, feats.reshape((c * b,) + feats.shape[2:]))
         out_cb = out.reshape((c, b) + out.shape[1:])
         return torch.sum(weights * loss_banked(out_cb, ys)), out_cb
 
@@ -306,6 +406,8 @@ def _make_fused(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, dev
                 loss, out = loss_from(cb, sp, xs, ys, model_noise, guard_noise)
             (grads,) = torch.autograd.grad(loss, fl)
         with torch.no_grad():
+            if mesh is not None:
+                complete_grads_(grads, unravel)
             gnorm = torch.sqrt(torch.sum(torch.square(grads)))
             scale = torch.clamp(tc.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
             updates, new_opt = opt.update(grads * scale, opt_state, flat, step)
@@ -314,6 +416,17 @@ def _make_fused(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, dev
             metrics = {k: torch.sum(weights * v) for k, v in per.items()}
             metrics["grad_norm"] = gnorm
             return flat.detach() + updates, new_opt, metrics
+
+    def complete_grads_(grads, unravel):
+        """This rank's chunks of the flat gradient -> the whole of it, in
+        place: the banks' rows over the client axis (``e2e``), the trunk's
+        shards over the model axis."""
+        g = unravel(grads)
+        banks_g, server_g = (None, g) if detached else g
+        if banks_g is not None:
+            gather_chunks_([(v, 0) for v in tree_leaves(banks_g)], cax)
+        if tp is not None:
+            tp.gather_grads_(server_g, tp.specs(server_g))
 
     def step_core(state, xs, ys, model_noise=None, guard_noise=None):
         flat, unravel = ravel(trainable_of(state))
@@ -327,12 +440,19 @@ def _make_fused(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, dev
 
 
 def make_spatio_temporal_step(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer,
-                              device=None):
+                              device=None, mesh=None):
     """The fused engine step: (init_state, step) with ``step(state, xs, ys,
     model_noise=None, guard_noise=None)`` on stacked per-client batches
-    ``[C, b, ...]`` of size ``fused_client_batch(tc)`` and their noise."""
-    init_state, step_core, *_ = _make_fused(adapter, tc, opt, device)
+    ``[C, b, ...]`` of size ``fused_client_batch(tc)`` and their noise
+    (whole under ``mesh`` too: each rank reads its clients' rows)."""
+    init_state, step_core, *_ = _make_fused(adapter, tc, opt, device, mesh)
     return init_state, step_core
+
+
+def make_single_client_step(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer,
+                            device=None):
+    """The baseline: ONE client + server (conventional split learning)."""
+    return make_spatio_temporal_step(adapter, single_client_config(tc), opt, device)
 
 
 def make_looped_step(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer,
@@ -402,23 +522,31 @@ def make_looped_step(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer
     return init_state, step
 
 
-def make_server_step(adapter: SplitAdapter, opt: Optimizer, grad_clip: float = 1.0):
+def make_server_step(adapter: SplitAdapter, opt: Optimizer, grad_clip: float = 1.0,
+                     mesh=None):
     """One trunk update on one popped batch, the per-pop step of
     ``protocol.SplitServer`` (``repro/core/protocol.py:283-295``):
     ``step(server_params, opt_state, step, features, labels) -> (params,
     opt_state, loss)``: the gradient of the adapter loss in the trunk's
     parameters, leaf-wise ``clip_by_global_norm``, ``opt.update`` at the
-    int32 ``step`` and ``apply_updates``. The moments stay trees."""
+    int32 ``step`` and ``apply_updates``. The moments stay trees. Under a
+    ``mesh`` whose model axis is above 1 the trunk runs tensor-parallel and
+    its gradient is completed from the ranks' shards before the clip."""
+    tp = _trunk_sharder(mesh)
+    server_fwd = _server_forward(adapter, tp)
 
     def step(params, opt_state, step, features, labels):
         live = tree_map(lambda p: p.detach().requires_grad_(True), params)
         with torch.enable_grad():
-            loss = adapter.loss(adapter.server_forward(live, features), labels)
+            loss = adapter.loss(server_fwd(live, features), labels)
             leaves = tree_leaves(live)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grad_of = {id(p): torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)}
         with torch.no_grad():
-            grads, _ = clip_by_global_norm(tree_map(lambda p: grad_of[id(p)], live), grad_clip)
+            grads = tree_map(lambda p: grad_of[id(p)], live)
+            if tp is not None:
+                tp.gather_grads_(grads, tp.specs(grads))
+            grads, _ = clip_by_global_norm(grads, grad_clip)
             t = torch.tensor(int(step), dtype=torch.int32, device=leaves[0].device)
             updates, new_opt = opt.update(grads, opt_state, params, t)
             return apply_updates(params, updates), new_opt, loss.detach()
@@ -427,7 +555,7 @@ def make_server_step(adapter: SplitAdapter, opt: Optimizer, grad_clip: float = 1
 
 
 def make_server_bank_runner(adapter: SplitAdapter, opt: Optimizer, grad_clip: float = 1.0,
-                            *, step_fn=None):
+                            *, step_fn=None, mesh=None):
     """The fused-queue engine's server half: replay a stacked bank of queue
     arrivals as trunk updates, as ``repro.core.trainer.make_server_bank_runner``.
 
@@ -438,8 +566,10 @@ def make_server_bank_runner(adapter: SplitAdapter, opt: Optimizer, grad_clip: fl
     here that calls ``step_fn`` (default :func:`make_server_step`), the very
     step ``protocol.SplitServer`` takes a pop, so a replay is bit for bit
     the per-pop run over the same items. An invalid slot is an identity
-    update (parameters, moments and the step hold still) with a NaN loss."""
-    step_fn = step_fn if step_fn is not None else make_server_step(adapter, opt, grad_clip)
+    update (parameters, moments and the step hold still) with a NaN loss.
+    ``mesh``: the default step's (``make_server_step``)."""
+    step_fn = step_fn if step_fn is not None else make_server_step(adapter, opt, grad_clip,
+                                                                   mesh)
 
     def run_bank(server_params, opt_state, step0, features, labels, valid):
         step = int(step0)
@@ -466,6 +596,7 @@ def make_epoch_runner(
     *,
     mode: str = "scan",
     device=None,
+    mesh=None,
 ):
     """Returns (init_state, run_epoch). ``run_epoch(state, data_x, data_y,
     plan)`` runs ``steps_per_epoch`` fused steps on the padded epoch data
@@ -476,10 +607,16 @@ def make_epoch_runner(
     The trainable tree is raveled once into the flat buffer the steps
     carry. ``mode="scan"`` advances the budget once for the epoch, as the
     reference's scan; ``mode="stepwise"`` once a step. Both run the same
-    Python loop of steps."""
+    Python loop of steps.
+
+    ``mesh``: every rank takes the whole plan and the whole epoch data and
+    reads its clients' rows of them, so the noise is the same for every
+    layout; the labels go whole with the features to the trunk, which
+    every rank runs."""
     if mode not in ("scan", "stepwise"):
         raise ValueError(f"mode must be 'scan' or 'stepwise', got {mode!r}")
-    init_state, _, trainable_of, with_trainable, step_flat = _make_fused(adapter, tc, opt, device)
+    init_state, _, trainable_of, with_trainable, step_flat = _make_fused(adapter, tc, opt,
+                                                                         device, mesh)
 
     def run_epoch(state, data_x, data_y, plan: SamplePlan):
         if plan.idx.shape[0] != steps_per_epoch:
@@ -563,3 +700,41 @@ def evaluate_per_client(
     }
     result["per_client"] = per
     return result
+
+
+# ------------------------------------------------------------- legacy shims
+def train_spatio_temporal(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer,
+                          shards: Sequence[Tuple[np.ndarray, np.ndarray]], *, epochs: int,
+                          steps_per_epoch: int, seed: int = 0, eval_fn=None,
+                          epoch_mode: Optional[str] = None, device=None):
+    """DEPRECATED: use ``repro_torch.core.session.SplitSession`` (engine
+    ``auto`` / ``fused-scan`` / ``fused-stepwise``). Delegates to it, so the
+    numbers are the session's. Returns ``(canonical state, history)``."""
+    warnings.warn(
+        "train_spatio_temporal is deprecated; use repro_torch.core.session.SplitSession",
+        DeprecationWarning, stacklevel=2,
+    )
+    from repro_torch.core.session import SplitSession
+
+    engine = {None: "auto", "scan": "fused-scan", "stepwise": "fused-stepwise"}[epoch_mode]
+    session = SplitSession(adapter, tc, opt, engine=engine, seed=seed, device=device)
+    history = session.fit(shards, epochs=epochs, steps_per_epoch=steps_per_epoch,
+                          eval_fn=eval_fn)
+    return session.state, history
+
+
+def train_single_client(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer,
+                        shard: Tuple[np.ndarray, np.ndarray], *, epochs: int,
+                        steps_per_epoch: int, seed: int = 0, eval_fn=None, device=None):
+    """DEPRECATED: use ``SplitSession(adapter, single_client_config(tc),
+    opt)``; delegates to it through :func:`train_spatio_temporal`."""
+    warnings.warn(
+        "train_single_client is deprecated; use "
+        "SplitSession(adapter, single_client_config(tc), opt)",
+        DeprecationWarning, stacklevel=2,
+    )
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return train_spatio_temporal(adapter, single_client_config(tc), opt, [shard],
+                                     epochs=epochs, steps_per_epoch=steps_per_epoch,
+                                     seed=seed, eval_fn=eval_fn, device=device)

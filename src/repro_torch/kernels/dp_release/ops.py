@@ -83,12 +83,17 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def plan_for(x: torch.Tensor, noise: Optional[torch.Tensor], sigma: float) -> dict:
+def plan_for(x: torch.Tensor, noise: Optional[torch.Tensor], sigma: float,
+             rows: Optional[int] = None) -> dict:
     """The plan :func:`_launch` runs for these CUDA tensors: the card's SM
     count, x's type, and float4 where ``x`` and the noise it reads are
-    16-byte aligned (the output is a fresh allocation, which is)."""
+    16-byte aligned (the output is a fresh allocation, which is). ``rows``
+    (default ``x``'s) is the row count the plan is chosen for: a rank that
+    releases its share of a mesh's rows passes the whole release's, so it
+    sums each row as the unsharded release does."""
     read = [x] + ([noise] if sigma > 0.0 else [])
-    return release_plan(x.shape[0], math.prod(x.shape[1:]), _sm_count(x.device.index),
+    return release_plan(x.shape[0] if rows is None else int(rows), math.prod(x.shape[1:]),
+                        _sm_count(x.device.index),
                         all(t.data_ptr() % 16 == 0 for t in read),
                         str(x.dtype).removeprefix("torch."))
 
@@ -121,10 +126,11 @@ def check_inputs(x: torch.Tensor, noise: Optional[torch.Tensor], sigma: float) -
 
 
 def _launch(x, noise, clip_norm: float, sigma: float,
-            plan: Optional[dict] = None) -> torch.Tensor:
-    """The kernel on CUDA tensors, with :func:`plan_for`'s plan unless
-    ``plan`` is given (to time one plan against another); the source
-    refuses a plan that does not fit the shape."""
+            plan: Optional[dict] = None, plan_rows: Optional[int] = None) -> torch.Tensor:
+    """The kernel on CUDA tensors, with :func:`plan_for`'s plan (chosen for
+    ``plan_rows`` rows where given) unless ``plan`` is given (to time one
+    plan against another); the source refuses a plan that does not fit the
+    shape."""
     check_inputs(x, noise, sigma)
     use_noise = sigma > 0.0
     rows = x.shape[0]
@@ -132,7 +138,7 @@ def _launch(x, noise, clip_norm: float, sigma: float,
     lib = build.library("dp_release")
     out = torch.empty_like(x)
     if plan is None:
-        plan = plan_for(x, noise, sigma)
+        plan = plan_for(x, noise, sigma, plan_rows)
     k = plan["blocks_per_row"]
     partials = torch.empty((rows, k), device=x.device, dtype=torch.float32) if k > 1 else None
     with torch.cuda.device(x.device):
@@ -149,27 +155,29 @@ def _launch(x, noise, clip_norm: float, sigma: float,
 
 
 def dp_release_forward(x: torch.Tensor, noise: Optional[torch.Tensor],
-                       clip_norm: float, sigma: float = 0.0) -> torch.Tensor:
+                       clip_norm: float, sigma: float = 0.0,
+                       plan_rows: Optional[int] = None) -> torch.Tensor:
     """The fused release: the CUDA kernel for a CUDA ``x``, the plain
     version for a CPU ``x``; any other device raises. ``noise=None`` means
-    no perturbation."""
+    no perturbation. ``plan_rows``: the row count the kernel's plan is
+    chosen for (:func:`plan_for`)."""
     if noise is None:
         sigma = 0.0
     if x.device.type == "cpu":
         return dp_release_ref(x, noise, clip_norm=clip_norm, sigma=sigma)
     if x.device.type != "cuda":
         raise ValueError(f"dp_release runs on CUDA or the CPU, not {x.device}")
-    return _launch(x, noise, clip_norm, sigma)
+    return _launch(x, noise, clip_norm, sigma, plan_rows=plan_rows)
 
 
 class DPRelease(torch.autograd.Function):
     """Kernel forward, plain-version backward; the noise gets no gradient."""
 
     @staticmethod
-    def forward(ctx, x, noise, clip_norm, sigma):
+    def forward(ctx, x, noise, clip_norm, sigma, plan_rows=None):
         ctx.save_for_backward(x, noise)
         ctx.clip_norm, ctx.sigma = clip_norm, sigma
-        return dp_release_forward(x, noise, clip_norm, sigma)
+        return dp_release_forward(x, noise, clip_norm, sigma, plan_rows)
 
     @staticmethod
     def backward(ctx, g):
@@ -178,16 +186,19 @@ class DPRelease(torch.autograd.Function):
             xx = x.detach().requires_grad_()
             y = dp_release_ref(xx, noise, clip_norm=ctx.clip_norm, sigma=ctx.sigma)
             (dx,) = torch.autograd.grad(y, (xx,), g)
-        return dx, None, None, None
+        return dx, None, None, None, None
 
 
 def dp_release_with_noise(x: torch.Tensor, noise: Optional[torch.Tensor] = None, *,
                           clip_norm: float = 1.0, sigma: float = 0.0,
-                          use_kernel: bool = False) -> torch.Tensor:
+                          use_kernel: bool = False,
+                          plan_rows: Optional[int] = None) -> torch.Tensor:
     """The release with pre-drawn standard-normal ``noise`` (``None`` means
     no perturbation). ``use_kernel=False`` runs the plain version on any
-    device, as it selects the XLA path in ``repro``."""
+    device, as it selects the XLA path in ``repro``. ``plan_rows``: the row
+    count the kernel's plan is chosen for (a rank's share of a mesh's
+    release passes the whole release's)."""
     if use_kernel:
-        return DPRelease.apply(x, noise, clip_norm, sigma)
+        return DPRelease.apply(x, noise, clip_norm, sigma, plan_rows)
     return dp_release_ref(x, noise, clip_norm=clip_norm,
                           sigma=sigma if noise is not None else 0.0)

@@ -28,12 +28,22 @@ def _init_conv(generator, in_ch, out_ch, ksize=3, dtype=torch.float32):
     }
 
 
-def conv2d(p, x: torch.Tensor) -> torch.Tensor:
-    """Stride-1 SAME conv. x: [B, H, W, C] NHWC; p["w"]: [kh, kw, C, O] HWIO.
-    The NCHW view of a contiguous NHWC tensor is channels-last, so the conv
-    runs channels-last and the result permutes back to contiguous NHWC."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1),
-                 padding="same")
+def conv2d(p, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """SAME conv with ``stride``, as ``repro.models.cnn.conv2d``. x: [B, H,
+    W, C] NHWC; p["w"]: [kh, kw, C, O] HWIO. The NCHW view of a contiguous
+    NHWC tensor is channels-last, so the conv runs channels-last and the
+    result permutes back to contiguous NHWC. A stride above 1 pads as XLA's
+    SAME does: ``ceil(H / stride)`` outputs, the odd pixel of padding at
+    the bottom and right."""
+    xc, wc = x.permute(0, 3, 1, 2), p["w"].permute(3, 2, 0, 1)
+    if stride == 1:
+        y = F.conv2d(xc, wc, padding="same")
+    else:
+        pads = []
+        for size, k in ((x.shape[2], wc.shape[3]), (x.shape[1], wc.shape[2])):
+            total = max((-(-size // stride) - 1) * stride + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        y = F.conv2d(F.pad(xc, pads), wc, stride=stride)
     return y.permute(0, 2, 3, 1) + p["b"]
 
 
@@ -171,3 +181,39 @@ def server_forward(params, cfg: CNNConfig, fmap: torch.Tensor) -> torch.Tensor:
         x = torch.relu(x @ dlay["w"] + dlay["b"])
     o = params["server"]["out"]
     return x @ o["w"] + o["b"]
+
+
+def server_forward_tp(params, cfg: CNNConfig, fmap: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`server_forward` tensor-parallel over the mesh's model axis
+    (``tp`` a ``sharding.tensor_parallel.TrunkParallel``): each conv shards
+    its output channels, ReLU and the pool run on the shard, the stage
+    gathers before the next conv and the flatten; the dense layers alternate
+    column- and row-parallel; the logits are gathered."""
+    sp = params["server"]
+    specs = tp.specs(sp)
+    x, sharded = fmap, False
+    for convs, cspecs in zip(sp["stages"], specs["stages"]):
+        for c, s in zip(convs, cspecs):
+            x, sharded = tp.conv(conv2d, x, sharded, c, s)
+            x = torch.relu(x)
+        x = max_pool(x)
+    x = tp.whole(x, sharded)
+    x, sharded = x.reshape(x.shape[0], -1), False
+    for dlay, s in zip(sp["dense"], specs["dense"]):
+        x, sharded = tp.dense(x, sharded, dlay, s)
+        x = torch.relu(x)
+    x, sharded = tp.dense(x, sharded, sp["out"], specs["out"])
+    return tp.whole(x, sharded)
+
+
+def forward(params, cfg: CNNConfig, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+            detach_cut: bool = True) -> torch.Tensor:
+    """The whole model in one trust domain, as ``repro.models.cnn.forward``:
+    :func:`client_forward` with the standard-normal model ``noise`` (the
+    reference's key), the cut detached where ``detach_cut``, then
+    :func:`server_forward`. Split deployments go through ``SplitSession``,
+    which guards the cut."""
+    fmap = client_forward(params, cfg, x, noise)
+    if detach_cut:
+        fmap = fmap.detach()
+    return server_forward(params, cfg, fmap)  # splitlint: ignore[SPL101]

@@ -48,3 +48,27 @@ def server_forward(params, cfg: MLPConfig, h: torch.Tensor) -> torch.Tensor:
         h = F.leaky_relu(h @ lay["w"] + lay["b"], 0.01)
     out = layers[-1]
     return (h @ out["w"] + out["b"])[..., 0]  # [B]
+
+
+def server_forward_tp(params, cfg: MLPConfig, h: torch.Tensor, tp) -> torch.Tensor:
+    """:func:`server_forward` tensor-parallel over the mesh's model axis
+    (``tp`` a ``sharding.tensor_parallel.TrunkParallel``): the layers
+    alternate column- and row-parallel, the output is gathered."""
+    layers = params["server"]["layers"]
+    specs = tp.specs(params["server"])["layers"]
+    sharded = False
+    for lay, s in zip(layers[:-1], specs[:-1]):
+        h, sharded = tp.dense(h, sharded, lay, s)
+        h = F.leaky_relu(h, 0.01)
+    h, sharded = tp.dense(h, sharded, layers[-1], specs[-1])
+    return tp.whole(h, sharded)[..., 0]  # [B]
+
+
+def forward(params, cfg: MLPConfig, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+            detach_cut: bool = True) -> torch.Tensor:
+    """The whole model in one trust domain, as ``repro.models.mlp.forward``,
+    with the standard-normal model ``noise`` in the place of its key."""
+    h = client_forward(params, cfg, x, noise)
+    if detach_cut:
+        h = h.detach()
+    return server_forward(params, cfg, h)  # splitlint: ignore[SPL101]

@@ -127,11 +127,14 @@ class PrivacyGuard:
     def sigma(self) -> float:
         return self.dp.sigma if self.dp is not None else 0.0
 
-    def release_with_noise(self, features: torch.Tensor,
-                           noise: Optional[torch.Tensor]) -> torch.Tensor:
+    def release_with_noise(self, features: torch.Tensor, noise: Optional[torch.Tensor],
+                           plan_rows: Optional[int] = None) -> torch.Tensor:
         """The release with pre-drawn standard-normal ``noise`` of the
         features' shape (``None``: no perturbation, refused when σ > 0 so
-        that no release is charged for a guarantee that does not hold)."""
+        that no release is charged for a guarantee that does not hold).
+        ``plan_rows``: the rows of the whole release where this call is a
+        rank's share of it (the fused kernel then sums each row as the
+        whole release does)."""
         if self.dp is None:
             return features
         dp = self.dp
@@ -145,7 +148,8 @@ class PrivacyGuard:
                 out = features + sigma * noise.to(features.dtype)
         else:
             out = _dp_release_op(features, noise, clip_norm=float(dp.clip_norm),
-                                 sigma=float(sigma), use_kernel=dp.use_kernel)
+                                 sigma=float(sigma), use_kernel=dp.use_kernel,
+                                 plan_rows=plan_rows)
         if dp.quantize_bits is not None:
             out = quantize_ste(out, dp.clip_norm or 1.0, dp.quantize_bits)
         return out

@@ -41,6 +41,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.core.adapters import SplitAdapter
 from repro_torch.core.protocol import _pop_with_backoff, make_client_release_fwd
 from repro_torch.core.queue import FeatureQueue
+from repro_torch.core.trainer import _server_forward, _trunk_sharder, check_mesh
 from repro_torch.privacy.guard import PrivacyGuard
 from repro_torch.serving.traces import Trace
 
@@ -50,16 +51,19 @@ _SAMPLE_RNG_TAG = 977
 NoiseFn = Callable[[int, int, Tuple[int, ...], Tuple[int, ...]], Tuple[Any, Any]]
 
 
-def make_server_batch_forward(adapter: SplitAdapter):
+def make_server_batch_forward(adapter: SplitAdapter, mesh=None):
     """The serving consumer's one trunk dispatch per cycle:
     ``forward(server_params, feats [K, b, ...]) -> outputs [K, b, ...]``.
     The ``K`` padded request slots run as one ``[K*b, ...]`` batch; padded
-    slots run on zeros and their outputs are never routed."""
+    slots run on zeros and their outputs are never routed. ``mesh`` runs
+    the trunk tensor-parallel over its ``"model"`` axis like every training
+    step (the identity on an axis of size 1 or none: bit for bit there)."""
+    server_fwd = _server_forward(adapter, _trunk_sharder(mesh))
 
     @torch.no_grad()
     def forward(server_params, feats):
         k, b = feats.shape[:2]
-        out = adapter.server_forward(server_params, feats.reshape((k * b,) + feats.shape[2:]))
+        out = server_fwd(server_params, feats.reshape((k * b,) + feats.shape[2:]))
         return out.reshape((k, b) + out.shape[1:])
 
     return forward
@@ -169,7 +173,10 @@ class SplitInferenceServer:
         in ``queue_stats``;
       * ``seed``: seeds the per-client noise generators; ``noise_fn``
         (``(client_id, release, model_shape, guard_shape) -> (model_noise,
-        guard_noise)``, standard-normal arrays) replaces their draws.
+        guard_noise)``, standard-normal arrays) replaces their draws;
+      * ``mesh``: a ``launch.mesh`` mesh on ``device``'s type; every rank
+        serves the trace (the drive is deterministic) and the trunk runs
+        tensor-parallel over its ``"model"`` axis.
     """
 
     def __init__(self, adapter: SplitAdapter, state, *,
@@ -178,7 +185,7 @@ class SplitInferenceServer:
                  max_wait: Optional[int] = None, request_batch: int = 1,
                  pop_retries: int = 0, pop_backoff: float = 2.0,
                  record_features: bool = False, keep_responses: bool = True,
-                 seed: int = 0, noise_fn: Optional[NoiseFn] = None, device=None):
+                 seed: int = 0, noise_fn: Optional[NoiseFn] = None, device=None, mesh=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if request_batch < 1:
@@ -188,6 +195,9 @@ class SplitInferenceServer:
         if pop_backoff < 1.0:
             raise ValueError(f"pop_backoff must be >= 1.0, got {pop_backoff}")
         self.device = resolve_device(device)
+        if mesh is not None:
+            check_mesh(mesh, self.device, client_axis=None)
+        self.mesh = mesh
         self.adapter = adapter
         self.guard = guard if guard is not None else PrivacyGuard()
         state = to_torch(state, self.device)
@@ -204,7 +214,7 @@ class SplitInferenceServer:
         self.seed = int(seed)
         self.noise_fn = noise_fn
         self._client_fwd = make_client_release_fwd(adapter, self.guard)
-        self._batch_fwd = make_server_batch_forward(adapter)
+        self._batch_fwd = make_server_batch_forward(adapter, mesh)
 
     # ------------------------------------------------------------ admission
     def _noise(self, gens, client_id: int, release: int, shape):

@@ -147,6 +147,27 @@ def test_dp_release_other_plans_and_refusals(cuda):
             dp_ops._launch(x, None, 1.0, 0.0, {**good, **bad})
 
 
+# a rank's share of a mesh's release (one client's rows of three) with the
+# plan chosen for the whole release's rows: each row is summed as the whole
+# release sums it. At the LM cut a share alone would split a row into other
+# blocks (64 where the three rows take 44); at the COVID cut both take one.
+@pytest.mark.parametrize("shape,ranks,share_plan_differs", [
+    ((3, 512 * 2048), 3, True), ((63, 16384), 3, False)])
+def test_dp_release_share_under_the_whole_plan_is_bit_exact(cuda, shape, ranks,
+                                                            share_plan_differs):
+    g = torch.Generator().manual_seed(7)
+    x, nz = _randn(g, *shape), _randn(g, *shape)
+    whole = dp_ops.dp_release_forward(x, nz, 1.0, 9.7)
+    n = shape[0] // ranks
+    assert dp_ops.plan_for(x[:n], nz[:n], 9.7, shape[0]) == dp_ops.plan_for(x, nz, 9.7)
+    assert (dp_ops.plan_for(x[:n], nz[:n], 9.7) != dp_ops.plan_for(x, nz, 9.7)) == \
+        share_plan_differs
+    for r in range(ranks):
+        part = slice(r * n, (r + 1) * n)
+        got = dp_ops.dp_release_forward(x[part], nz[part], 1.0, 9.7, plan_rows=shape[0])
+        assert torch.equal(got, whole[part])
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.randn(2, 8, 8, 1, device=cuda)
     w, b = torch.randn(3, 3, 1, 4, device=cuda), torch.zeros(4, device=cuda)
@@ -693,3 +714,47 @@ def test_ssm_layer_on_the_card_against_the_cpu(cuda):
             states.append([torch.cat(ys, 1), st["conv"], st["h"]])
     for a, b in zip(states[1], states[0]):
         torch.testing.assert_close(a.cpu(), b, **TOL)
+
+
+@pytest.mark.parametrize("engine", ["auto", "protocol-async", "fused-queue", "llm-split"])
+def test_1x1_mesh_on_the_card_is_bit_exact(cuda, engine):
+    """A 1x1 make_split_mesh on the card (a one-rank NCCL group) against no
+    mesh: a narrow CNN with both kernels on (llm-split: a tiny transformer,
+    dp_release at the cut), at the calibrated sigma: the same losses, every
+    state leaf equal, the same kernel launches."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import SplitSession, SplitTrainConfig
+    from repro_torch.core.distributed import llm_adapter
+    from repro_torch.launch.mesh import make_split_mesh
+    from repro_torch.models.transformer import ModelOptions
+
+    dp = DPConfig(clip_norm=1.0, use_kernel=True)
+    if engine == "llm-split":
+        tiny = ModelConfig(name="llm-tiny", family="dense", n_layers=2, d_model=32, n_heads=2,
+                           n_kv_heads=1, d_ff=64, vocab_size=97, dtype="float32",
+                           cut_layers=1, privacy_noise=0.02)
+        adapter = llm_adapter(tiny, ModelOptions(q_block=8, kv_block=8))
+        rng = np.random.default_rng(0)
+        shards = [(w, w) for w in (rng.integers(0, 97, (6, 8)).astype(np.int32)
+                                   for _ in range(3))]
+    else:
+        cfg = dataclasses.replace(COVID_CNN, input_hw=(16, 16), stages=((8, 1), (16, 1)),
+                                  dense_units=(8,), use_kernel=True)
+        adapter = cnn_adapter(cfg)
+        shards = split_clients(*make_covid_ct(60, hw=16, seed=0), shares=(0.7, 0.2, 0.1))
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for mesh in (None, make_split_mesh(1, 1, n_clients=3)):
+            s = SplitSession(adapter, SplitTrainConfig(server_batch=12, privacy=dp),
+                             adamw(1e-3), engine=engine, device="cuda", mesh=mesh)
+            pc0, dp0 = pc_ops.launches, dp_ops.launches
+            hist = s.fit(shards, epochs=2, steps_per_epoch=3)
+            runs.append(([h["loss"] for h in hist], s.state, pc_ops.launches - pc0,
+                         dp_ops.launches - dp0))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (l0, s0, pc0, dp0), (l1, s1, pc1, dp1) = runs
+    assert l0 == l1 and (pc0, dp0) == (pc1, dp1) and dp0 > 0
+    for a, b in zip(tree_leaves(s0), tree_leaves(s1)):
+        assert torch.equal(a, b)

@@ -18,7 +18,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 # the training path's, the queue engines', FedAvg's and the audit's modules
-# (and the two deprecated shims), and the LM workload's, among them
+# (and the two deprecated shims), the LM workload's, and the mesh and
+# sharding layer's, among them
 assert {"repro_torch.common.tree", "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
         "repro_torch.core.trainer", "repro_torch.core.session", "repro_torch.core.faults",
         "repro_torch.core.protocol", "repro_torch.core.queue", "repro_torch.core.fedavg",
@@ -27,7 +28,9 @@ assert {"repro_torch.common.tree", "repro_torch.optim.optimizers", "repro_torch.
         "repro_torch.models.transformer", "repro_torch.models.model", "repro_torch.data.lm",
         "repro_torch.models.moe", "repro_torch.models.ssm",
         "repro_torch.core.distributed", "repro_torch.launch.serve",
-        "repro_torch.launch.train"} <= set(names), names
+        "repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.sharding.logical",
+        "repro_torch.sharding.specs", "repro_torch.sharding.collectives",
+        "repro_torch.sharding.tensor_parallel"} <= set(names), names
 import numpy as np, torch
 from repro_torch.common.bridge import to_numpy, to_torch
 bits = np.array([0x3F80, 0x7FC1, 0x8000], np.uint16)
