@@ -136,6 +136,24 @@ llama path, ``lm_mesh`` takes two ``llm-split`` steps through
 ``SplitSession`` from the session's state with and without the grid, bit
 for bit.
 
+Then the model axis (``llm-split``'s sharded state; ``launch.steps``):
+``lm_tp`` runs llama3.2-1b at its published width (4 of its 16 layers,
+seq 512, three hospitals, ``dp_release`` at σ 9.69) one step at 1x1 in
+this process, then on ``make_split_mesh(1, 2)``: two processes on this
+card (``--rank``), a gloo group over a loopback TCP store, the trunk
+tensor-parallel and each rank holding its blocks; the losses, the
+gathered gradient, each rank's held trunk bytes against its
+``trunk_specs`` share, its ``dp_release`` launches and the grid's
+checkpoint restored without a grid are gated. ``moe_dp`` runs
+granite-moe-1b-a400m (4 of 24 layers, seq 512) through
+``steps.build_train`` on a ("data", "model") (2, 1) grid of two such
+processes, each data rank routing its own tokens, against the no-mesh
+``moe_chunks=2`` step (loss, gradient, routing). ``dryrun`` runs
+``launch/dryrun.py`` on the host meanwhile (llama3.2-1b train_4k at
+16x16, granite train_4k at 2x16x16: predictions from counts), and
+``lm_roofline`` puts the dry-run's compute term for lm_train's own step
+beside the device time a step that ``lm_time`` measured.
+
 It prints one JSON object per phase and a ``kernels`` line
 with every ported kernel (with its launches on the serving, training,
 queue, FedAvg, audit and LM paths, the MoE, SSM and hybrid ones among
@@ -170,6 +188,7 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.common.device import seeded_generator  # noqa: E402
 from repro_torch.common.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.configs import CHOLESTEROL_MLP, COVID_CNN, MURA_VGG19, get_config  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     ClientLoopError,
     FaultPlan,
@@ -178,7 +197,13 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core import fedavg as fedavg_mod  # noqa: E402
 from repro_torch.core.adapters import cnn_adapter, mlp_adapter  # noqa: E402
-from repro_torch.core.distributed import llm_adapter, llm_step_parts  # noqa: E402
+from repro_torch.core.distributed import (  # noqa: E402
+    init_llm_state,
+    llm_adapter,
+    llm_state_template,
+    llm_step_parts,
+    make_guarded_llm_step,
+)
 from repro_torch.core.session import LLMSplitEngine  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
     _plan_round_robin_cycle,
@@ -211,9 +236,12 @@ from repro_torch.kernels.privacy_conv.ref import (  # noqa: E402
 from repro_torch.kernels.selective_scan import ops as ss_ops  # noqa: E402
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
     make_client_mesh,
+    make_production_mesh,
     make_split_mesh,
+    mesh_shape,
     release_meshes,
 )
 from repro_torch.launch.train import lm_shards  # noqa: E402
@@ -225,6 +253,8 @@ from repro_torch.privacy import DPConfig, PrivacyGuard, composed_epsilon  # noqa
 from repro_torch.privacy import audit as audit_mod  # noqa: E402
 from repro_torch.privacy.audit import guard_noise_sweep, invert_features  # noqa: E402
 from repro_torch.serving import SplitInferenceServer, poisson_trace  # noqa: E402
+from repro_torch.sharding.specs import spec_leaves  # noqa: E402
+from repro_torch.sharding.tensor_parallel import shard_tree  # noqa: E402
 
 TOP_K = moe_mod._top_k  # the routing's own top-k, which ``Routing`` wraps
 
@@ -1959,9 +1989,10 @@ class LMSpec:
 # - granite-moe-1b-a400m (24 layers, d 1024, 16 heads over 8, 32 experts
 #   top 8 of d_ff 512, vocab 49,155) at 512 tokens, its published depth;
 # - falcon-mamba-7b (d 4096, d_inner 8192, d_state 16, vocab 65,024) cut to
-#   12 of its 64 layers (the AdamW state of 64 is ~116 GB; at 16 the
+#   8 of its 64 layers (the AdamW state of 64 is ~116 GB; at 16 the
 #   restore phase peaked at 70.34 GiB, past the 70 GiB the card's 80 GB
-#   leave room for) at 256 tokens: 3 x 256 x 4096 is the 1,048,576-element
+#   leave room for; 12 until the model-axis phases needed the smoke's time)
+#   at 256 tokens: 3 x 256 x 4096 is the 1,048,576-element
 #   row that the reference's dp_release kernel admits (its VMEM assert);
 #   the CPU step at 64 tokens
 # - and, apart (``hybrid``), jamba-1.5-large-398b's layer pattern (16
@@ -1974,7 +2005,7 @@ LM_SPECS = {
                   time_rounds=2),
     # one step profiled: the scan's ~40,000 launches a step take the
     # profiler's host side ~30 s a step to tabulate
-    "ssm": LMSpec("ssm", "falcon-mamba-7b", seq=256, cpu_seq=64, n_layers=12,
+    "ssm": LMSpec("ssm", "falcon-mamba-7b", seq=256, cpu_seq=64, n_layers=8,
                   cpu_budget_s=20.0, time_rounds=2, remat=True,
                   profile_steps=1),
 }
@@ -2091,17 +2122,27 @@ def routed_grads(fa, fb, what: str):
     return a, b, route
 
 
-def lm_session(dev, spec: LMSpec, mode="detached") -> SplitSession:
+def lm_session(dev, spec: LMSpec, mode="detached", mesh=None,
+               card_seed=None) -> SplitSession:
     """``spec``'s config split by launch/train.py's recipe: three hospitals,
     one window a step each, adamw(linear_warmup_cosine(3e-4, 20, steps)),
     the guard clipped at epsilon 1, the release through dp_release
-    (``lm_parts`` gives the step's other variants)."""
+    (``lm_parts`` gives the step's other variants). ``card_seed``: the
+    weights drawn on the card from a CUDA generator seeded with it (a
+    ``StateEngine``; the same weights in every process on this card, in
+    a second where the engine's CPU draw takes ~15 s)."""
     dp = DPConfig(epsilon=1.0, delta=1e-5, clip_norm=1.0, use_kernel=True)
     tc = SplitTrainConfig(n_clients=3, data_shares=SHARES, server_batch=3, mode=mode, privacy=dp)
     opt = adamw(linear_warmup_cosine(LM_LR, 20, LM_EPOCHS * LM_STEPS))
     adapter = llm_adapter(spec_config(spec), ModelOptions(q_block=spec.seq, kv_block=spec.seq),
                           torch.float32)
-    return SplitSession(adapter, tc, opt, engine="llm-split", seed=0, device=dev)
+    if card_seed is None:
+        return SplitSession(adapter, tc, opt, engine="llm-split", seed=0, device=dev, mesh=mesh)
+    start = init_llm_state(torch.Generator(device=dev).manual_seed(card_seed), adapter.cfg,
+                           tc.n_clients, opt, dtype=torch.float32, mode=mode, device=dev)
+    engine = StateEngine(start, adapter, tc, opt, device=dev, mesh=mesh)
+    del start
+    return SplitSession(adapter, tc, opt, engine=engine, seed=0, device=dev)
 
 
 def lm_parts(sess, on: bool, noise_scale=None, remat: bool = False):
@@ -2540,7 +2581,8 @@ def lm_time(dev, smi: str, sess, shards, decode: dict, release_inputs: dict,
          "bound_ms_second_read": second["bound_ms"],
          "bound_share_second_read": second["bound_ms"] / k_ms}
     emit({"phase": "time", "card": smi, **t})
-    return t
+    # the device's busy time a step of the parts (lm_roofline reads it)
+    return {**t, "step_device_ms": busy / spec.profile_steps}
 
 
 def lm_phases(dev, smi: str, release_inputs: dict, tmp: str, spec: LMSpec) -> dict:
@@ -2764,7 +2806,8 @@ class StateEngine(LLMSplitEngine):
 
     def init(self, seed: int):
         self._start(seed)
-        return self.from_canonical(self._start_state)
+        start, self._start_state = self._start_state, None  # the engine keeps its copy
+        return self.from_canonical(start)
 
 
 def lm_mesh(dev, smi: str, sess, shards, spec) -> dict:
@@ -2814,6 +2857,482 @@ def lm_mesh(dev, smi: str, sess, shards, spec) -> dict:
     return launches
 
 
+# ==== the model axis: the transformer trunk tensor-parallel and the MoE's
+# data-axis dispatch on two ranks of the one card, and the dry-run
+# llama3.2-1b / granite-moe-1b-a400m at their published widths, 4 of their
+# 16 / 24 layers (the mechanism is per layer; depth adds only time)
+TP_SPEC = dataclasses.replace(LM_SPECS["lm"], prefix="lm_tp", n_layers=4, e2e=False,
+                              mesh=False)
+MOE_DP_CONFIG, MOE_DP_SHAPE = "granite-moe-1b-a400m", ShapeConfig("moe_dp", 512, 4, "train")
+TP_LOSS_RTOL = 1e-5
+# tests/test_torch_moe.py's tolerance of the MoE layer (its rows, gates and
+# aux 1e-6): a data rank's chunk against the same chunk of the whole batch
+MOE_DP_TOL = dict(atol=1e-5, rtol=1e-5)
+RANK_LIMIT_S = 600
+# the command of a rank of spawn_ranks (this script with --rank), its device
+RANK_PROGRAM = [sys.executable, os.path.abspath(__file__)]
+RANK_DEVICE = "cuda"
+# the dry-run's cases: launch/dryrun.py in a process of its own (CPU only)
+DRYRUNS = {"llama3.2-1b/train_4k/16x16": ["--arch", "llama3.2-1b", "--shape", "train_4k"],
+           "granite-moe-1b-a400m/train_4k/2x16x16": ["--arch", "granite-moe-1b-a400m",
+                                                     "--shape", "train_4k", "--multi-pod"],
+           # lm_train's own step: llama at full depth, seq 512, 3 rows, 1x1
+           "lm_train/1x1": ["--arch", "llama3.2-1b", "--shape", "train_4k", "--mesh", "1x1",
+                            "--seq", "512", "--batch", "3"]}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def spawn_ranks(job: str, tmp: str, world: int = 2) -> list:
+    """``job`` on ``world`` processes on this card (``--rank``): a gloo
+    process group over a loopback TCP store, which this call starts; their
+    JSON results, rank by rank. Kills them past RANK_LIMIT_S and raises on
+    a rank's failure with its log's end."""
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": "lo", "OMP_NUM_THREADS": "4"}
+    port = str(free_port())
+    procs, logs = [], []
+    for r in range(world):
+        logs.append(open(os.path.join(tmp, f"{job}_rank{r}.log"), "w"))
+        procs.append(subprocess.Popen([*RANK_PROGRAM, "--rank", job, str(r), str(world), tmp,
+                                       port],
+                                      env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + RANK_LIMIT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.wait()
+        raise AssertionError(f"{job}: the ranks did not finish within {RANK_LIMIT_S} s")
+    finally:
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(tmp, f"{job}_rank{r}.log")) as f:
+                raise AssertionError(f"{job}: rank {r} exited {p.returncode}:\n"
+                                     f"{f.read()[-4000:]}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{job}_rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def block_bytes(tree, specs, mesh) -> int:
+    """Bytes of a rank's blocks of the whole-shaped ``tree`` under ``specs``."""
+    sizes = mesh_shape(mesh)
+    return sum(math.prod(d // (sizes[a] if a else 1) for d, a in zip(x.shape, sp))
+               * x.element_size() for x, sp in zip(tree_leaves(tree), spec_leaves(specs)))
+
+
+def all_launches(lm0: dict) -> dict:
+    """Every kernel's launches since :func:`reset_counts` (the LM kernels'
+    counters read against ``lm0``, :func:`lm_kernel_counts` at the reset)."""
+    return {**{k: v["launches"] for k, v in kernel_counts().items()},
+            **{k: v - lm0[k] for k, v in lm_kernel_counts().items()}}
+
+
+def one_step_gate(got: dict, want: dict, dev, what: str, grad_tol=None) -> dict:
+    """A state one AdamW step from zero moments against another (each
+    ``{"server", "opt", "grad_norm"}``; ``want``'s leaves are read onto
+    ``dev`` one at a time): the weights within TRAIN_TOL, the gradient and
+    the second moment in relative L2, and with ``grad_tol`` each gradient
+    element within it. The first moment from zero is (1 - b1) times the
+    clipped gradient; the clip (at 1, the steps' ``grad_clip``) is undone
+    with each state's own norm, so the gradient is the step's own."""
+    scale = [max(s["grad_norm"], 1.0) / (1 - ADAM_B1) for s in (got, want)]
+    out = {"weights_max_abs_err": 0.0}
+    for a, b in zip(tree_leaves(got["server"]), tree_leaves(want["server"])):
+        out["weights_max_abs_err"] = max(out["weights_max_abs_err"],
+                                         max_err(a.to(dev), b.to(dev), **TRAIN_TOL,
+                                                 what=f"{what} weights"))
+    for key, name in (("mu", "grad"), ("nu", "nu")):
+        d2 = w2 = 0.0
+        for a, b in zip(tree_leaves(got["opt"][key]), tree_leaves(want["opt"][key])):
+            a, b = a.to(dev), b.to(dev)
+            if key == "mu":
+                a, b = a * scale[0], b * scale[1]
+                if grad_tol is not None:
+                    out["grad_max_abs_err"] = max(out.get("grad_max_abs_err", 0.0),
+                                                  max_err(a, b, **grad_tol,
+                                                          what=f"{what} gradient"))
+            d2 += float(torch.sum(torch.square(a - b)))
+            w2 += float(torch.sum(torch.square(b)))
+        out[f"{name}_rel_l2"] = math.sqrt(d2 / w2)
+    return out
+
+
+def lm_tp_rank(dev, rank: int, tmp: str) -> dict:
+    """One rank of ``lm_tp``: TP_SPEC's session on ``make_split_mesh(1, 2)``
+    (the trunk's blocks only, tensor-parallel), the held trunk's bytes
+    against its ``trunk_specs`` share, the main path (one ``fit`` step,
+    every kernel's launches counted), a ``save``; then rank 0 holds the
+    grid's gathered state after the step to the 1x1 step's
+    (``lm_tp_ref.pt``: the weights within TRAIN_TOL, the gradient and the
+    second moment in relative L2) and restores the checkpoint without a
+    grid."""
+    t0 = time.perf_counter()
+    times = {}
+    cfg = spec_config(TP_SPEC)
+    shards = lm_shards(cfg, SHARES, 1, TP_SPEC.seq, 0)
+    mesh = make_split_mesh(1, 2, n_clients=3)
+    sess = lm_session(dev, TP_SPEC, mesh=mesh, card_seed=0)
+    eng, native = sess.engine, sess.native_state
+    tmpl = llm_state_template(cfg, 3, sess.opt)
+    held = native["flat"].numel() * native["flat"].element_size()
+    placed = block_bytes(tree_map(lambda x: x.float(), tmpl["server"]), eng.specs["server"],
+                         mesh)
+    torch.cuda.synchronize()
+    times["init_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset_counts()
+    lm0 = lm_kernel_counts()
+    sess.fit(shards, epochs=1, steps_per_epoch=1)
+    torch.cuda.synchronize()
+    launches = all_launches(lm0)
+    (release,) = kernel_counts()["dp_release"]["plans"]
+    grad_norm = float(sess.step_metrics[0]["grad_norm"][0])
+    times["fit_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = sess.save(os.path.join(tmp, "lm_tp_ckpt"))
+    times["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gate, restored = None, None
+    if rank == 0:
+        saved = sess.state  # gathered whole (the other rank gathers with it)
+        ref = torch.load(os.path.join(tmp, "lm_tp_ref.pt"), mmap=True)
+        gate = one_step_gate({**saved, "grad_norm": grad_norm}, ref, dev, "lm_tp")
+        del ref
+        # the grid's checkpoint restored by a session with no mesh, started
+        # from zeros (no second draw of the weights)
+        plain = SplitSession(sess.adapter, sess.config, sess.opt, seed=0, device=dev,
+                             engine=StateEngine(tree_map(torch.zeros_like, saved),
+                                                sess.adapter, sess.config, sess.opt,
+                                                device=dev))
+        plain.restore(path)
+        restored = states_equal(plain.state, saved)
+        del plain, saved
+    else:
+        sess.state  # noqa: B018 (the gather is collective)
+    times["check_s"] = time.perf_counter() - t0
+    return {"rank": rank, "held_trunk_bytes": held, "placed_trunk_bytes": placed,
+            "restored_bit_for_bit": restored, "gate": gate,
+            "whole_trunk_bytes": sum(x.numel() * 4 for x in tree_leaves(tmpl["server"])),
+            "launches": launches, "dp_release_calls": release["calls"],
+            "dp_release_blocks_per_row": release["plan"]["blocks_per_row"],
+            "loss": step_losses(sess)[0],
+            "grad_norm": grad_norm,
+            "backend": torch.distributed.get_backend(mesh.get_group("model")),
+            "times": times, "peak_gib": peak_gib()}
+
+
+def lm_tp(dev, smi: str, tmp: str) -> dict:
+    """``lm_tp``: TP_SPEC's ``fit`` step from one state at 1x1 in this
+    process (its loss, its gradient norm and the state after it written to
+    ``lm_tp_ref.pt``, the card freed), then the same step on
+    ``make_split_mesh(1, 2)``: two processes on this card over gloo (NCCL
+    refuses two ranks on one device). Gates: the loss within TP_LOSS_RTOL,
+    the gradient norm and the gathered weights within TRAIN_TOL, the
+    gradient and AdamW's second moment within GRAD_TOL relative L2, each
+    rank's held trunk bytes its ``trunk_specs`` share exactly, one
+    dp_release call a rank planned for the whole release's rows (two
+    launches) and no other kernel, and the grid's checkpoint
+    restored without a grid bit for bit. lm_train's warm-up gives the
+    first step learning rate 0, so the weights stay where they were on
+    both layouts; the clip and AdamW's moments on the blocks show in the
+    gradient (the first moment) and the second moment."""
+    t0 = time.perf_counter()
+    cfg = spec_config(TP_SPEC)
+    shards = lm_shards(cfg, SHARES, 1, TP_SPEC.seq, 0)
+    free_card()
+    sess = lm_session(dev, TP_SPEC, mesh=make_split_mesh(1, 1, n_clients=3), card_seed=0)
+    sess.fit(shards, epochs=1, steps_per_epoch=1)
+    state = sess.state
+    ref = {"loss": step_losses(sess)[0], "grad_norm": float(sess.step_metrics[0]["grad_norm"][0])}
+    torch.save({**ref, "server": tree_map(lambda a: a.cpu(), state["server"]),
+                "opt": tree_map(lambda a: a.cpu(), state["opt"])},
+               os.path.join(tmp, "lm_tp_ref.pt"))
+    peak_1x1 = peak_gib()
+    del sess, state
+    release_meshes()
+    free_card()
+    t_ref = time.perf_counter() - t0
+    t_ranks = time.perf_counter()
+    ranks = spawn_ranks("lm_tp", tmp)
+    t_ranks = time.perf_counter() - t_ranks
+    gate = ranks[0]["gate"]
+    whole = dp_ops.release_plan(3, TP_SPEC.seq * cfg.d_model,
+                                torch.cuda.get_device_properties(0).multi_processor_count)
+    if whole["launches"] != 2:
+        raise AssertionError(f"lm_tp: the whole release's plan {whole} does not split rows")
+    for r in ranks:
+        if not abs(r["loss"] / ref["loss"] - 1.0) <= TP_LOSS_RTOL:
+            raise AssertionError(f"lm_tp rank {r['rank']} loss {r['loss']} vs 1x1 {ref['loss']}")
+        max_err(torch.tensor([r["grad_norm"]]), torch.tensor([ref["grad_norm"]]), **TRAIN_TOL,
+                what=f"lm_tp rank {r['rank']} grad_norm")
+        if r["held_trunk_bytes"] != r["placed_trunk_bytes"]:
+            raise AssertionError(f"lm_tp rank {r['rank']} holds {r['held_trunk_bytes']} trunk "
+                                 f"bytes, its trunk_specs share is {r['placed_trunk_bytes']}")
+        # one release of the 3 clients' rows a rank, planned for those 3
+        # rows: split rows (k = 44 on 132 SMs), so two launches
+        want = {"privacy_conv": 0, "flash_attention": 0, "selective_scan": 0, "dp_release": 2}
+        if (r["dp_release_calls"] != 1 or r["launches"] != want
+                or r["dp_release_blocks_per_row"] != whole["blocks_per_row"]):
+            raise AssertionError(f"lm_tp rank {r['rank']}: launches {r['launches']} in "
+                                 f"{r['dp_release_calls']} dp_release calls of "
+                                 f"{r['dp_release_blocks_per_row']} blocks a row, want {want} "
+                                 f"in 1 of {whole['blocks_per_row']}")
+    for key in ("grad_rel_l2", "nu_rel_l2"):
+        if not gate[key] <= GRAD_TOL:
+            raise AssertionError(f"lm_tp: {key} {gate[key]} above {GRAD_TOL}")
+    if ranks[0]["restored_bit_for_bit"] is not True:
+        raise AssertionError("lm_tp: the grid's checkpoint restored without a grid differs "
+                             "from the grid's state")
+    emit({"phase": "lm_tp", "card": smi, "config": cfg.name, "n_layers": cfg.n_layers,
+          "published_layers": get_config(TP_SPEC.config).n_layers, "seq": TP_SPEC.seq,
+          "clients": 3, "dtype": "float32", "tf32": False, "grid": "make_split_mesh(1, 2)",
+          "ranks": 2, "backend": ranks[0]["backend"],
+          "loss_1x1": ref["loss"], "loss_grid": [r["loss"] for r in ranks],
+          "grad_norm_1x1": ref["grad_norm"], "grad_norm_grid": [r["grad_norm"] for r in ranks],
+          "loss_rtol": TP_LOSS_RTOL, **gate, "grad_tol": GRAD_TOL, **TRAIN_TOL,
+          "held_trunk_bytes": [r["held_trunk_bytes"] for r in ranks],
+          "whole_trunk_bytes": ranks[0]["whole_trunk_bytes"],
+          "launches": [r["launches"] for r in ranks],
+          "dp_release_blocks_per_row": [r["dp_release_blocks_per_row"] for r in ranks],
+          "restored_bit_for_bit": True, "peak_gib_1x1": peak_1x1,
+          "peak_gib": [r["peak_gib"] for r in ranks], "ref_s": t_ref, "ranks_wall_s": t_ranks,
+          "rank_times_s": [r["times"] for r in ranks], "wall_s": time.perf_counter() - t0})
+    return {"launches": [r["launches"] for r in ranks]}
+
+
+def moe_dp_batch(dev):
+    rng = np.random.default_rng(11)
+    cfg = get_config(MOE_DP_CONFIG)
+    C, b = 2, MOE_DP_SHAPE.global_batch // 2
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (C, b, MOE_DP_SHAPE.seq_len),
+                                           dtype=np.int32)).to(dev)
+    return {"tokens": tokens, "labels": tokens}
+
+
+def moe_dp_setup(dev):
+    """granite at 4 layers, its whole state (two clients) drawn on the card
+    from seed 0, the batch and the step's options (``production_opts``'
+    moe_chunks = 2)."""
+    cfg = dataclasses.replace(get_config(MOE_DP_CONFIG), n_layers=4)
+    opt = adamw(3e-4, weight_decay=0.1)
+    state = init_llm_state(torch.Generator(device=dev).manual_seed(0), cfg, 2, opt,
+                           dtype=torch.float32, device=dev)
+    opts = ModelOptions(q_block=MOE_DP_SHAPE.seq_len, kv_block=MOE_DP_SHAPE.seq_len,
+                        moe_chunks=2)
+    return cfg, opt, state, moe_dp_batch(dev), opts
+
+
+def moe_dp_rank(dev, rank: int, tmp: str) -> dict:
+    """One data rank of ``moe_dp``: the main path, one step of
+    ``steps.build_train``'s ``fn`` on the ("data", "model") (2, 1) grid from
+    the rank's blocks of the seed's state (each rank routes its own
+    tokens), every kernel's launches counted; its routing written, and
+    rank 0's state after the step (the trunk, data-parallel, whole on
+    each rank) with the step's loss and gradient norm."""
+    t0 = time.perf_counter()
+    cfg, opt, state, batch, opts = moe_dp_setup(dev)
+    mesh = make_production_mesh(shape=(2, 1))
+    low = steps.build_train(cfg, MOE_DP_SHAPE, mesh, opts)
+    local_state = shard_tree(state, low.in_placements[0], mesh)
+    local_batch = shard_tree(batch, low.in_placements[1], mesh)
+    del state
+    torch.cuda.synchronize()
+    times = {"init_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    reset_counts()
+    lm0 = lm_kernel_counts()
+    with Routing() as route:
+        new, metrics = low.fn(local_state, local_batch, None)
+    torch.cuda.synchronize()
+    launches = all_launches(lm0)
+    times["step_s"] = time.perf_counter() - t0
+    out = {"loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"])}
+    torch.save({"ids": [i.cpu() for i in route.ids], "gaps": [x.cpu() for x in route.gaps]},
+               os.path.join(tmp, f"moe_dp_route{rank}.pt"))
+    if rank == 0:
+        torch.save({**out, "server": tree_map(lambda a: a.cpu(), new["server"]),
+                    "opt": tree_map(lambda a: a.cpu(), new["opt"])},
+                   os.path.join(tmp, "moe_dp_state.pt"))
+    return {"rank": rank, **out, "launches": launches, "times": times,
+            "moe_chunks": steps.production_opts(cfg, mesh, kind="train").moe_chunks,
+            "backend": torch.distributed.get_backend(mesh.get_group("data")),
+            "peak_gib": peak_gib()}
+
+
+def moe_dp(dev, smi: str, tmp: str) -> dict:
+    """``moe_dp``: granite's ``steps.build_train`` step on a ("data",
+    "model") (2, 1) grid, two processes on this card over gloo, each data
+    rank routing its own tokens, against the no-mesh
+    ``make_guarded_llm_step`` of ``moe_forward(chunks=2)`` from the same
+    state in this process: the loss, the gradient norm and the gradient
+    within MOE_DP_TOL, the second moment within GRAD_TOL relative L2 and
+    the weights after the step within TRAIN_TOL (``one_step_gate``);
+    routing flips only at near ties (the no-mesh step retaken with the
+    grid's routing where one flipped)."""
+    t0 = time.perf_counter()
+    free_card()
+    cfg, opt, state, batch, opts = moe_dp_setup(dev)
+    step = make_guarded_llm_step(cfg, opts, opt, 2)
+
+    def no_mesh(replay=None):
+        with Routing(replay=replay) as route:
+            new, m = step(state, batch)
+        return route, {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                       "server": tree_map(lambda a: a.cpu(), new["server"]),
+                       "opt": tree_map(lambda a: a.cpu(), new["opt"])}
+
+    route, ref = no_mesh()
+    state = tree_map(lambda a: a.cpu() if isinstance(a, torch.Tensor) else a, state)
+    free_card()
+    t_ref = time.perf_counter() - t0
+    t_ranks = time.perf_counter()
+    ranks = spawn_ranks("moe_dp", tmp)
+    t_ranks = time.perf_counter() - t_ranks
+    got = torch.load(os.path.join(tmp, "moe_dp_state.pt"), mmap=True)
+    # the ranks' routing calls in the no-mesh run's order: each client's
+    # MoE layers in its bank (both chunks of its rows), then each trunk
+    # MoE layer's chunk r
+    n_client = sum(cfg.layer_is_moe(i) for i in range(cfg.cut_layers)) * 2
+    n_trunk = sum(cfg.layer_is_moe(i) for i in range(cfg.cut_layers, cfg.n_layers))
+    grid = [None] * len(route.ids)
+    for r in range(2):
+        rr = torch.load(os.path.join(tmp, f"moe_dp_route{r}.pt"))
+        order = ([r * n_client + j for j in range(n_client)]
+                 + [2 * n_client + layer * 2 + r for layer in range(n_trunk)])
+        if len(order) != len(rr["ids"]):
+            raise AssertionError(f"moe_dp rank {r}: {len(rr['ids'])} routing calls, want "
+                                 f"{len(order)}")
+        for j, k in enumerate(order):
+            grid[k] = rr["ids"][j]
+    ran = Routing()
+    ran.ids = grid
+    gate = routing_gate(route, ran, "moe_dp")
+    del gate["masks"]
+    if gate["routing_flips"]:  # one routing for the states compared
+        state = tree_map(lambda a: a.to(dev) if isinstance(a, torch.Tensor) else a, state)
+        _, ref = no_mesh(replay=ran)
+    del state
+    for r in ranks:
+        for key in ("loss", "grad_norm"):
+            max_err(torch.tensor([r[key]]), torch.tensor([ref[key]]), **MOE_DP_TOL,
+                    what=f"moe_dp rank {r['rank']} {key}")
+    state_gate = one_step_gate(got, ref, dev, "moe_dp", grad_tol=MOE_DP_TOL)
+    for key in ("grad_rel_l2", "nu_rel_l2"):
+        if not state_gate[key] <= GRAD_TOL:
+            raise AssertionError(f"moe_dp: {key} {state_gate[key]} above {GRAD_TOL}")
+    del got
+    free_card()
+    emit({"phase": "moe_dp", "card": smi, "config": cfg.name, "n_layers": cfg.n_layers,
+          "published_layers": get_config(MOE_DP_CONFIG).n_layers, "seq": MOE_DP_SHAPE.seq_len,
+          "global_batch": MOE_DP_SHAPE.global_batch, "grid": "(data=2, model=1)",
+          "entry": "launch.steps.build_train", "moe_chunks": ranks[0]["moe_chunks"],
+          "backend": ranks[0]["backend"], "loss_no_mesh": ref["loss"],
+          "loss_grid": [r["loss"] for r in ranks], "grad_norm_no_mesh": ref["grad_norm"],
+          "grad_norm_grid": [r["grad_norm"] for r in ranks], **state_gate,
+          **MOE_DP_TOL, "grad_tol": GRAD_TOL, "weights_tol": TRAIN_TOL, **gate,
+          "launches": [r["launches"] for r in ranks],
+          "peak_gib": [r["peak_gib"] for r in ranks], "ref_s": t_ref, "ranks_wall_s": t_ranks,
+          "rank_times_s": [r["times"] for r in ranks], "wall_s": time.perf_counter() - t0})
+    return {"launches": [r["launches"] for r in ranks]}
+
+
+def dryrun_start(tmp: str) -> dict:
+    """The dry-run cases, each ``launch/dryrun.py`` in a process of its own
+    on the CPU (no card), started now and read by :func:`dryrun_collect`."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(HERE, "src"), "CUDA_VISIBLE_DEVICES": "",
+           "OMP_NUM_THREADS": "2"}
+    runs = {}
+    for i, (name, args) in enumerate(DRYRUNS.items()):
+        out, log = os.path.join(tmp, f"dryrun{i}.json"), os.path.join(tmp, f"dryrun{i}.log")
+        with open(log, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                                     "--out", out], env=env, stdout=f, stderr=subprocess.STDOUT,
+                                    cwd=HERE)
+        runs[name] = (proc, out, log, time.perf_counter())
+    return runs
+
+
+def dryrun_collect(smi: str, runs: dict) -> dict:
+    """``dryrun``: each case's per-rank GiB, the three roofline terms, the
+    bottleneck and ``useful_flops_ratio`` (predictions from counts for an
+    H100 cluster, ``roofline.analysis.HW_H100``; no card ran them)."""
+    got = {}
+    for name, (proc, out, log, t0) in runs.items():
+        try:
+            proc.wait(timeout=RANK_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"dryrun {name}: not done within {RANK_LIMIT_S} s")
+        if proc.returncode != 0:
+            with open(log) as f:
+                raise AssertionError(f"dryrun {name} exited {proc.returncode}:\n"
+                                     f"{f.read()[-3000:]}")
+        with open(out) as f:
+            (rec,) = json.load(f)
+        got[name] = rec
+        emit({"phase": "dryrun", "case": name, "prediction": True, "hw": "HW_H100",
+              "held_gib_per_rank": rec["memory_per_device_bytes"] / 2 ** 30,
+              "peak_gib_per_rank": rec["peak_memory_bytes"] / 2 ** 30,
+              "t_compute_ms": rec["t_compute"] * 1e3, "t_memory_ms": rec["t_memory"] * 1e3,
+              "t_collective_ms": rec["t_collective"] * 1e3, "bottleneck": rec["bottleneck"],
+              "useful_flops_ratio": rec["useful_flops_ratio"],
+              "flops_per_device": rec["flops_per_device"],
+              "flops_by_dtype": rec["flops_by_dtype"],
+              "collectives_by_type": rec["collectives_by_type"],
+              "trace_s": rec["t_trace_s"], "wall_s": time.perf_counter() - t0})
+    return got
+
+
+def lm_roofline(smi: str, dry: dict, timed: dict) -> None:
+    """``lm_roofline``: the dry-run's compute term for lm_train's own step
+    (llama at full depth, seq 512, float32, 1x1; one client of three rows
+    where lm_train has three of one, the same matmul FLOPs) beside the
+    device time a step that lm_time measured (the profiler's busy time of
+    the step's parts)."""
+    rec = dry["lm_train/1x1"]
+    measured = timed["step_device_ms"]
+    emit({"phase": "lm_roofline", "card": smi, "config": "llama3.2-1b", "seq": 512,
+          "rows": 3, "dtype": "float32", "tf32": False,
+          "predicted_compute_ms": rec["t_compute"] * 1e3,
+          "predicted_memory_ms": rec["t_memory"] * 1e3, "flops": rec["flops_per_device"],
+          "measured_step_device_ms": measured,
+          "compute_over_measured": rec["t_compute"] * 1e3 / measured,
+          "achieved_tflops": rec["flops_per_device"] / (measured * 1e-3) / 1e12})
+
+
+def rank_main(job: str, rank: int, world: int, tmp: str, port: int) -> None:
+    """A rank of ``spawn_ranks``: the card, TF32 off, a gloo group over a
+    loopback TCP store; the job's JSON result to ``tmp``."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    store = dist.TCPStore("127.0.0.1", port, world, is_master=rank == 0)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    dev = torch.device(RANK_DEVICE)
+    out = {"lm_tp": lm_tp_rank, "moe_dp": moe_dp_rank}[job](dev, rank, tmp)
+    with open(os.path.join(tmp, f"{job}_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    release_meshes()
+
+
 def card_line() -> str:
     """The card's name and power limit as nvidia-smi prints them, printed."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2832,6 +3351,10 @@ def covid_state(adapter, dev):
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device is available; this script runs on the card")
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank":  # a process of spawn_ranks
+        job, rank, world, tmp, port = sys.argv[2:7]
+        rank_main(job, int(rank), int(world), tmp, int(port))
+        return
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3209,6 +3732,17 @@ def main() -> None:
     emit({"phase": "mesh_wall", "card": smi, "wall_s": time.perf_counter() - t0,
           "process_group_destroyed": not torch.distributed.is_initialized()})
 
+    # ==== the model axis: lm_tp and moe_dp on two ranks of this card, the
+    # dry-run's cases on the CPU meanwhile, then lm_roofline
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        dry_runs = dryrun_start(tmp)
+        tp = lm_tp(dev, smi, tmp)
+        moe_tp = moe_dp(dev, smi, tmp)
+        dry = dryrun_collect(smi, dry_runs)
+    lm_roofline(smi, dry, lm_timed)
+    emit({"phase": "model_axis_wall", "card": smi, "wall_s": time.perf_counter() - t0})
+
     # ---- kernels: one line for every ported kernel
     rows = [
         ("privacy_conv", "src/repro_torch/csrc/privacy_conv.cu",
@@ -3277,6 +3811,10 @@ def main() -> None:
          # sigma; equal to no mesh's, checked) and llama's two grid steps
          "launches_mesh": {"mesh_train": mesh["launches"]["calibrated"]["grid"].get(name, 0),
                            "lm_mesh": lm["mesh"].get(name, 0)},
+         # the model axis: each rank's launches on lm_tp's fit step and
+         # moe_dp's step (steps.build_train has no guard, as the reference's)
+         "launches_model_axis": {"lm_tp": [r[name] for r in tp["launches"]],
+                                 "moe_dp": [r[name] for r in moe_tp["launches"]]},
          **({f"{p}_{k}": out["timed"][k] for p, out in lm_paths.items()
              for k in ("case", "ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_second_read")}
             | {f"{p}_max_abs_err": errs[f"dp_release/{p}_cut"] for p in lm_paths}

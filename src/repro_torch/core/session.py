@@ -33,11 +33,14 @@ on a client's trained bank.
 (``make_split_mesh``), on the session's device type, for the fused engines,
 the queue engines and ``llm-split`` (``looped-ref`` and ``fedavg`` refuse
 it, as the reference's do). Every rank runs the same session (one process a
-rank, SPMD) and holds the canonical state whole: each rank runs its
-clients' privacy layers and the releases are all-gathered over the client
-axis, the trunk runs tensor-parallel over a model axis above 1, and every
-rank completes the gradient and takes the same optimizer step, so the
-state stays identical across ranks and ``save`` writes it from rank 0.
+rank, SPMD): each rank runs its clients' privacy layers and the releases
+are all-gathered over the client axis. The fused and queue engines hold
+the canonical state whole: the trunk runs tensor-parallel over a model
+axis above 1 and every rank completes the gradient and takes the same
+optimizer step, so the state stays identical across ranks. ``llm-split``
+over a model axis above 1 (or on a production grid) holds only its
+blocks of the state (``core.distributed``). ``save`` writes the whole
+state from rank 0.
 Every rank holds the epoch data whole and draws the epoch's whole plan
 from the same seed, and each step reads its clients' rows of them, so the
 noise is the same for every layout and no placement step is needed (the
@@ -77,6 +80,9 @@ from repro_torch.core.adapters import SplitAdapter
 from repro_torch.core.distributed import (
     LLMSplitAdapter,
     init_llm_params,
+    is_sharded,
+    llm_state_specs,
+    llm_state_template,
     llm_step_parts,
     trainable_of,
 )
@@ -113,6 +119,7 @@ from repro_torch.privacy.accountant import (
 from repro_torch.privacy.audit import guard_noise_sweep
 from repro_torch.privacy.guard import PrivacyGuard
 from repro_torch.sharding.collectives import MeshAxis
+from repro_torch.sharding.tensor_parallel import shard_tree, whole_tree
 
 Shards = Sequence[Tuple[np.ndarray, np.ndarray]]
 EvalFn = Optional[Callable[[Any], Dict[str, float]]]
@@ -739,7 +746,15 @@ class LLMSplitEngine(_Engine):
     copies it (``updates_in_place``). The weights are drawn leaf by leaf
     from a CPU generator seeded with ``SeedSequence((seed,))``'s first word
     and moved to the engine's device, so one seed gives the same weights,
-    plans and noise on the card and on the CPU."""
+    plans and noise on the card and on the CPU.
+
+    On a sharded mesh (``core.distributed.is_sharded``: a model axis above
+    1, or a production grid) the native state holds this rank's blocks
+    (``llm_state_specs``): the flat buffer and its moments only the trunk's
+    blocks, the banks only the rank's clients'. ``init`` draws the whole
+    state and keeps the blocks; ``to_canonical`` gathers the whole state
+    (every rank calls it, as ``save``, ``state`` and ``evaluate`` do) and
+    ``from_canonical`` places a whole one."""
 
     name = "llm-split"
     updates_in_place = True
@@ -765,6 +780,12 @@ class LLMSplitEngine(_Engine):
         self.parts = llm_step_parts(adapter.cfg, adapter.opts, opt, tc.n_clients,
                                     grad_clip=tc.grad_clip, privacy=tc.privacy,
                                     shared_bank=shared_bank, mode=tc.mode, mesh=mesh)
+        self.sharded = is_sharded(mesh)
+        self.specs = None
+        if self.sharded:
+            self.specs = llm_state_specs(
+                llm_state_template(adapter.cfg, tc.n_clients, opt, adapter.dtype, shared_bank,
+                                   tc.mode), mesh, shared_bank=shared_bank, mode=tc.mode)
         self._unravel = None
 
     def _native_state(self, banks, server, opt_state, step, privacy):
@@ -781,6 +802,9 @@ class LLMSplitEngine(_Engine):
         self._start(seed)
         banks, server = init_llm_params(seeded_generator(seed), self.adapter.cfg, self.tc.n_clients,
                                         self.adapter.dtype, self.shared_bank, self.device)
+        if self.sharded:  # keep this rank's blocks
+            banks = shard_tree(banks, self.specs["client_banks"], self.mesh)
+            server = shard_tree(server, self.specs["server"], self.mesh)
         return self._native_state(banks, server, None,
                                   torch.zeros((), dtype=torch.int32, device=self.device),
                                   budget_init(self.device))
@@ -821,19 +845,25 @@ class LLMSplitEngine(_Engine):
         tr = self._unravel(state["flat"])
         banks, server = ((state["client_banks"], tr) if self.parts.detached
                          else (tr["client_banks"], tr["server"]))
+        canonical = {"client_banks": banks, "server": server,
+                     "opt": {k: self._unravel(v) for k, v in state["opt"].items()},
+                     "step": state["step"], "privacy": state["privacy"]}
+        if self.sharded:
+            canonical = whole_tree(canonical, self.specs, self.mesh)
         if self.shared_bank:
             n = self.tc.n_clients
-            banks = tree_map(lambda a: a[None].expand((n,) + tuple(a.shape)), banks)
-        return {"client_banks": banks, "server": server,
-                "opt": {k: self._unravel(v) for k, v in state["opt"].items()},
-                "step": state["step"], "privacy": state["privacy"]}
+            canonical["client_banks"] = tree_map(lambda a: a[None].expand((n,) + tuple(a.shape)),
+                                                 canonical["client_banks"])
+        return canonical
 
     def from_canonical(self, canonical):
-        banks = canonical["client_banks"]
         if self.shared_bank:
-            banks = tree_map(lambda a: a[0], banks)
-        return self._native_state(banks, canonical["server"], canonical["opt"],
-                                  canonical["step"], canonical["privacy"])
+            canonical = {**canonical,
+                         "client_banks": tree_map(lambda a: a[0], canonical["client_banks"])}
+        if self.sharded:
+            canonical = shard_tree(canonical, self.specs, self.mesh)
+        return self._native_state(canonical["client_banks"], canonical["server"],
+                                  canonical["opt"], canonical["step"], canonical["privacy"])
 
 
 class SplitSession:
@@ -994,8 +1024,9 @@ class SplitSession:
     def save(self, directory: str, metadata: Optional[dict] = None) -> str:
         """Checkpoint the canonical state (``checkpoint/io``), with the
         engine's epoch count so that ``restore`` continues the schedule.
-        Under a mesh every rank holds the whole state: rank 0 writes it and
-        the others wait for the write."""
+        Under a mesh every rank has the whole canonical state (an engine
+        that shards it gathers it): rank 0 writes it and the others wait
+        for the write."""
         state = self._canonical()
         meta = {"engine": self.engine.name, "adapter": self.adapter.name,
                 "n_clients": self.config.n_clients,

@@ -16,8 +16,11 @@ from __future__ import annotations
 
 import torch
 
+import torch.distributed as dist
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.sharding.collectives import copy_to
 
 NEG_INF = -1e30
 
@@ -123,11 +126,74 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
     return out[:, :S].to(q.dtype)
 
 
+# ------------------------------------------------- over the model axis
+def _rank_heads(params: dict, cfg: ModelConfig, x: torch.Tensor, positions, tp):
+    """This rank's query heads, and k/v whole, where ``wq``'s columns are
+    this rank's chunk (``tp`` a ``sharding.tensor_parallel.LMParallel``).
+
+    The rank holds q's columns ``[c0, c0 + nq)``, which cover the heads
+    ``[h_lo, h_hi)``; where they cut a head, q is gathered and the covering
+    heads' columns taken. k and v are made whole (gathered where ``wk``
+    shards, computed replicated where it does not): a rank's query heads
+    need their GQA group's kv head whole, and RoPE rotates whole heads.
+    Returns ``(q [B, S, Hc, hd], k, v [B, S, KV, hd], (h_lo, h_hi), (off,
+    nq))``, ``off`` the rank's first column within the covering heads'
+    output."""
+    B, S, _ = x.shape
+    hd, KV = cfg.head_dim, cfg.n_kv_heads
+    nq = params["wq"].shape[1]
+    c0 = tp.lo(nq)
+    h_lo, h_hi = c0 // hd, -(-(c0 + nq) // hd)
+    q = tp.col(x, params["wq"], params.get("bq"))
+    if c0 % hd or nq % hd:
+        q = tp.whole_for_mine(q)[..., h_lo * hd:h_hi * hd]
+
+    def whole_kv(w, b):
+        if tp.split(params[w].shape[1], KV * hd):
+            return tp.whole_for_mine(tp.col(x, params[w], params.get(b)))
+        y = x @ params[w] if b not in params else x @ params[w] + params[b]
+        return copy_to(y, tp.model)
+
+    k, v = whole_kv("wk", "bk"), whole_kv("wv", "bv")
+    q = apply_rope(q.reshape(B, S, h_hi - h_lo, hd), positions, cfg.rope_theta)
+    k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    return q, k, v.reshape(B, S, KV, hd), (h_lo, h_hi), (c0 - h_lo * hd, nq)
+
+
+def _kv_for_heads(k, v, G: int, h_lo: int, h_hi: int, kv0: int):
+    """The kv heads that query heads ``[h_lo, h_hi)`` read (head h reads kv
+    head ``h // G``), out of k/v ``[..., KVc, hd]`` holding kv heads from
+    ``kv0``: a contiguous run where the heads fill whole groups or sit in
+    one, else one kv head a query head (G = 1)."""
+    kv_lo, kv_hi = h_lo // G, (h_hi - 1) // G + 1
+    if (h_lo % G == 0 and (h_hi - h_lo) % G == 0) or kv_hi - kv_lo == 1:
+        return k[:, :, kv_lo - kv0:kv_hi - kv0], v[:, :, kv_lo - kv0:kv_hi - kv0]
+    idx = torch.arange(h_lo, h_hi, device=k.device) // G - kv0
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _attention_tp(params, cfg, x, positions, tp, **block_kw):
+    q, k, v, (h_lo, h_hi), (off, nq) = _rank_heads(params, cfg, x, positions, tp)
+    k, v = _kv_for_heads(k, v, cfg.n_heads // cfg.n_kv_heads, h_lo, h_hi, 0)
+    out = chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window, **block_kw)
+    B, S = x.shape[:2]
+    out = out.reshape(B, S, -1)[..., off:off + nq]
+    return tp.row(out, params["wo"])
+
+
 def attention_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
                       *, q_block: int = 1024, kv_block: int = 1024,
                       skip_masked_blocks: bool = False, bf16_probs: bool = False,
-                      return_kv: bool = False):
-    """Training / prefill attention. x: [B, S, d]."""
+                      return_kv: bool = False, tp=None):
+    """Training / prefill attention. x: [B, S, d]. ``tp`` (an
+    ``LMParallel``): ``params`` are this rank's shards, and where ``wq``'s
+    columns shard, the rank runs its heads (``_rank_heads``) and ``wo``
+    sums the heads' rows over the model axis."""
+    if tp is not None and tp.split(params["wq"].shape[1], cfg.n_heads * cfg.head_dim):
+        if return_kv:
+            raise ValueError("return_kv takes the unsharded path")
+        return _attention_tp(params, cfg, x, positions, tp, q_block=q_block, kv_block=kv_block,
+                             skip_masked_blocks=skip_masked_blocks, bf16_probs=bf16_probs)
     q, k, v = _project_qkv(params, cfg, x, positions)
     out = chunked_attention(q, k, v, causal=cfg.causal, window=cfg.sliding_window,
                             q_block=q_block, kv_block=kv_block,
@@ -148,28 +214,57 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attention(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int):
+def decode_attention(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict, pos: int,
+                     tp=None):
     """One-token decode. x: [B, 1, d]; cache k/v: [B, L, KV, hd]; ``pos``
     the token's position. Returns (y [B, 1, d], new_cache): the new key and
     value written to slot ``pos`` (``pos % L`` in a sliding window's ring),
-    the cache itself unchanged."""
+    the cache itself unchanged.
+
+    ``tp`` (an ``LMParallel``; forward only): ``params`` and ``cache`` are
+    this rank's shards. The cache holds the kv heads from ``kv0`` (its
+    heads shard over the model axis where it divides them) and, with
+    ``tp.seq``, the rank's run of positions (the reference's B = 1 rule):
+    the token's slot is written by the rank that holds it, and the softmax
+    takes its max and sums over ``tp.seq``."""
     B = x.shape[0]
-    hd = cfg.head_dim
-    L = cache["k"].shape[1]
+    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    L_loc, KVc = cache["k"].shape[1], cache["k"].shape[2]
+    seq = None if tp is None else tp.seq
+    L = L_loc * (1 if seq is None else seq.size)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+    split_heads = tp is not None and tp.split(params["wq"].shape[1], H * hd)
+    if split_heads:
+        q, k_new, v_new, (h_lo, h_hi), (off, nq) = _rank_heads(params, cfg, x, positions, tp)
+    else:
+        q, k_new, v_new = _project_qkv(params, cfg, x, positions)
+        h_lo, h_hi = 0, H
+    G = H // KV
+    kv0 = 0 if KVc == KV else tp.model.index * KVc
     slot = pos % L if cfg.sliding_window else pos
     k, v = cache["k"].clone(), cache["v"].clone()
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
-
-    KV, G = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(B, KV, G, hd)
-    s = torch.einsum("bkgh,blkh->bkgl", qg.float() * _scale(hd), k.float())
-    idx = torch.arange(L, device=x.device)
+    s0 = 0 if seq is None else seq.index * L_loc
+    if s0 <= slot < s0 + L_loc:  # the rank that holds the slot writes it
+        k[:, slot - s0] = k_new[:, 0, kv0:kv0 + KVc].to(k.dtype)
+        v[:, slot - s0] = v_new[:, 0, kv0:kv0 + KVc].to(v.dtype)
+    kh, vh = _kv_for_heads(k, v, G, h_lo, h_hi, kv0)
+    Gl = (h_hi - h_lo) // kh.shape[2]
+    qg = q.reshape(B, kh.shape[2], Gl, hd)
+    s = torch.einsum("bkgh,blkh->bkgl", qg.float() * _scale(hd), kh.float())
+    idx = s0 + torch.arange(L_loc, device=x.device)
     valid = (idx <= slot) | (pos >= L) if cfg.sliding_window else idx <= pos
     s = torch.where(valid, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgl,blkh->bkgh", p, v.float())
-    y = o.reshape(B, 1, cfg.n_heads * hd).to(x.dtype) @ params["wo"]
+    if seq is None:
+        o = torch.einsum("bkgl,blkh->bkgh", torch.softmax(s, dim=-1), vh.float())
+    else:
+        m = seq.all_reduce(torch.amax(s, dim=-1), op=dist.ReduceOp.MAX)
+        p = torch.exp(s - m[..., None])
+        denom = seq.all_reduce(torch.sum(p, dim=-1))
+        o = seq.all_reduce(torch.einsum("bkgl,blkh->bkgh", p, vh.float())) / denom[..., None]
+    o = o.reshape(B, 1, (h_hi - h_lo) * hd).to(x.dtype)
+    if split_heads:
+        y = tp.row(o[..., off:off + nq], params["wo"])
+    else:
+        y = o @ params["wo"]
     return y, {"k": k, "v": v}
+

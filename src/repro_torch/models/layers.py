@@ -82,7 +82,14 @@ def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:
+def swiglu(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """``(silu(x W_gate) * x W_up) W_down``. ``tp`` (a
+    ``sharding.tensor_parallel.LMParallel`` whose model axis shards
+    ``d_ff``): ``w_gate``/``w_up`` column-parallel, ``w_down`` row-parallel,
+    one all-reduce."""
+    if tp is not None:
+        h = torch.nn.functional.silu(tp.col(x, params["w_gate"])) * tp.col(x, params["w_up"])
+        return tp.row(h, params["w_down"])
     h = torch.nn.functional.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
 

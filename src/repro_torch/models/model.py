@@ -57,16 +57,19 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     return ce + MOE_AUX_WEIGHT * moe_aux, {"ce": ce, "moe_aux": moe_aux}
 
 
-def prefill(params: dict, cfg: ModelConfig, batch, opts: ModelOptions = ModelOptions()):
-    """Inference prefill: the forward's logits (no labels needed)."""
-    logits, _ = transformer.forward(params, cfg, batch, opts)
+def prefill(params: dict, cfg: ModelConfig, batch, opts: ModelOptions = ModelOptions(), tp=None):
+    """Inference prefill: the forward's logits (no labels needed). ``tp``
+    (a ``sharding.tensor_parallel.LMParallel``): ``params`` are this rank's
+    shards, and the logits its vocab chunk where the head shards."""
+    logits, _ = transformer.forward(params, cfg, batch, opts, tp=tp)
     return logits
 
 
 def serve_step(params: dict, cfg: ModelConfig, state, tokens, pos: int,
-               opts: ModelOptions = ModelOptions()):
-    """ONE new token against the KV caches."""
-    return transformer.decode_step(params, cfg, state, tokens, pos, opts)
+               opts: ModelOptions = ModelOptions(), tp=None):
+    """ONE new token against the KV caches (``tp``: as ``prefill``, the
+    state this rank's shards too)."""
+    return transformer.decode_step(params, cfg, state, tokens, pos, opts, tp=tp)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,

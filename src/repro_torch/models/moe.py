@@ -5,8 +5,16 @@ sort, so the order of tokens within an expert, and with it the tokens that
 fit the capacity ``C``, is the reference's), the expert SwiGLU as one
 batched product over ``[E, C, d]`` and the outputs combined by the gates.
 
-The reference's no-mesh path. Its mesh path (``shard_map`` over the data
-axes, ``moe.py:118-147`` in the JAX package) waits for the port's mesh.
+Over a mesh (``tp``, a ``sharding.tensor_parallel.LMParallel``): the
+experts shard over the model axis, expert-parallel where the axis divides
+E (each rank runs its experts' slots, and the outputs are gathered) and
+else tensor-parallel within each expert (``d_ff`` column/row), as the
+reference's placement rules; the routing runs replicated. With
+``tp.data`` (a data-parallel trunk) each data rank holds its own tokens,
+which it routes, sorts and buffers as ``chunks / data`` chunks of its own,
+and the aux loss is the mean over the data ranks (one all-reduce), the
+reference's ``shard_map``/``pmean`` path (``moe.py:116-155`` in the JAX
+package); a grid run equals ``moe_forward(chunks=k)`` without one.
 
 Two choices keep the card's backward pass deterministic, so that a rerun
 and a restored run give the same bits: every gather indexes distinct rows
@@ -31,6 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.collectives import copy_to, gather, pmean, reduce_from, scatter_to
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> dict:
@@ -125,18 +134,45 @@ def _expert_ffn(params: dict, xe: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...ecf,efd->...ecd", h, params["w_down"])
 
 
+def _expert_ffn_tp(params: dict, cfg: ModelConfig, xe: torch.Tensor, tp) -> torch.Tensor:
+    """``_expert_ffn`` on this rank's expert shards: expert-parallel (the
+    rank's experts' slots, the outputs gathered) or tensor-parallel within
+    each expert (``d_ff`` sharded, one all-reduce), or whole."""
+    if tp is None:
+        return _expert_ffn(params, xe)
+    e_dim = xe.dim() - 3
+    if tp.split(params["w_gate"].shape[0], cfg.n_experts):
+        return gather(_expert_ffn(params, scatter_to(xe, tp.model, e_dim)), tp.model, e_dim)
+    if tp.split(params["w_gate"].shape[-1], cfg.d_ff):
+        xc = copy_to(xe, tp.model)
+        h = F.silu(torch.einsum("...ecd,edf->...ecf", xc, params["w_gate"]))
+        h = h * torch.einsum("...ecd,edf->...ecf", xc, params["w_up"])
+        return reduce_from(torch.einsum("...ecf,efd->...ecd", h, params["w_down"]), tp.model)
+    return _expert_ffn(params, xe)
+
+
 def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                chunks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+                chunks: int = 1, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x ``[B, S, d]`` -> (y ``[B, S, d]``, the aux loss). ``chunks > 1``
     dispatches each of ``chunks`` token chunks on its own (the reference's
-    path without a mesh), the aux the mean over chunks."""
+    path without a mesh), the aux the mean over chunks. ``tp``: see the
+    module docstring; with ``tp.data``, ``x`` is this data rank's tokens,
+    ``chunks / tp.data.size`` chunks of them."""
     B, S, d = x.shape
     T = B * S
+    data = None if tp is None else tp.data
+    if data is not None and data.size > 1:
+        if chunks % data.size:
+            raise ValueError(f"moe_chunks={chunks} over a data-parallel trunk of {data.size} "
+                             "ranks: each data rank routes its own tokens, so the chunks must "
+                             "be a multiple of the data axes' size")
+        y, aux = moe_forward(params, cfg, x, chunks // data.size, tp.model_only())
+        return y, pmean(aux, data)
     if chunks > 1:
         Tc = T // chunks
         xc = x.reshape(chunks, Tc, d).float()
         routed = [_route_and_dispatch(params["router"], cfg, xc[c]) for c in range(chunks)]
-        ye = _expert_ffn(params, torch.stack([r[0] for r in routed]).to(x.dtype))
+        ye = _expert_ffn_tp(params, cfg, torch.stack([r[0] for r in routed]).to(x.dtype), tp)
         y = torch.stack([_combine(cfg, ye[c].float(), routed[c][1], Tc)
                          for c in range(chunks)])
         aux = torch.stack([r[2] for r in routed]).mean()
@@ -144,6 +180,6 @@ def moe_forward(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
     xf = x.reshape(T, d).float()
     xe, meta, aux = _route_and_dispatch(params["router"], cfg, xf)
-    ye = _expert_ffn(params, xe.to(x.dtype))
+    ye = _expert_ffn_tp(params, cfg, xe.to(x.dtype), tp)
     y = _combine(cfg, ye.float(), meta, T)
     return y.reshape(B, S, d).to(x.dtype), aux

@@ -12,6 +12,17 @@ the same composition, which the JAX package computes with
 ``lax.associative_scan`` in another tree, so the two part by float32
 rounding.
 
+Over the model axis (``tp``, a ``sharding.tensor_parallel.LMParallel``),
+the rank's shards follow one of the two placements: ``trunk_specs`` (the
+``make_split_mesh`` grids) shards only the input projections' ``d_inner``
+columns, so u and z are gathered and the rest runs replicated;
+``tree_specs`` (the production grids) also shards ``conv_w``, ``conv_b``,
+``x_proj``'s rows, ``dt_proj``'s columns, ``dt_bias``, ``A_log`` and
+``D`` over ``d_inner``, so the conv and the scan run on the rank's
+channels, ``x_proj`` sums its partial products (one all-reduce), and the
+gated output is gathered for the replicated ``out_proj``. The decode state
+(``conv``, ``h``) shards its channels with them.
+
 ``softplus`` is torch's, which returns x itself above 20 where
 ``jax.nn.softplus`` computes ``log1p(exp(x))``; they differ there by at
 most ``exp(-20)`` relative, 2e-9, below float32's resolution.
@@ -25,6 +36,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.collectives import copy_to, gather, reduce_from
 
 
 def init_ssm(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -> dict:
@@ -105,20 +117,38 @@ def _ssm_scan_associative(u, dt, B_t, C_t, A, D):
     return y + u * D[None, None]
 
 
+def _tp_mode(params: dict, cfg: ModelConfig, tp):
+    """``None`` (whole), ``"gather"`` (only the input projections shard) or
+    ``"channels"`` (every ``d_inner`` leaf shards)."""
+    if tp is None or not tp.split(params["in_proj_u"].shape[1], cfg.d_inner):
+        return None
+    return "channels" if tp.split(params["conv_w"].shape[0], cfg.d_inner) else "gather"
+
+
 def ssm_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                associative: bool = False) -> torch.Tensor:
+                associative: bool = False, tp=None) -> torch.Tensor:
     """x ``[B, S, d]`` -> ``[B, S, d]``: the projections in x's dtype, dt,
-    B, C and the scan in float32."""
-    u = x @ params["in_proj_u"]
-    z = x @ params["in_proj_z"]
+    B, C and the scan in float32. ``tp``: see the module docstring."""
+    mode = _tp_mode(params, cfg, tp)
+    xin = x if mode is None else copy_to(x, tp.model)
+    u = xin @ params["in_proj_u"]
+    z = xin @ params["in_proj_z"]
+    if mode == "gather":
+        u, z = gather(u, tp.model, u.dim() - 1), gather(z, tp.model, z.dim() - 1)
     u = F.silu(_causal_conv(u, params["conv_w"], params["conv_b"]))
-    proj = (u @ params["x_proj"]).float()
+    proj = u @ params["x_proj"]
+    if mode == "channels":  # x_proj row-parallel; B, C and dt feed the rank's channels
+        proj = copy_to(reduce_from(proj, tp.model), tp.model)
+    proj = proj.float()
     dt, B_t, C_t = torch.split(proj, [cfg.dt_rank, cfg.ssm_state, cfg.ssm_state], dim=-1)
     dt = F.softplus(dt @ params["dt_proj"].float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     scan = _ssm_scan_associative if associative else _ssm_scan
     y = scan(u.float(), dt, B_t, C_t, A, params["D"])
-    return (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
+    out = y.to(x.dtype) * F.silu(z)
+    if mode == "channels":
+        out = gather(out, tp.model, out.dim() - 1)
+    return out @ params["out_proj"]
 
 
 # ------------------------------------------------------------------ decode
@@ -133,10 +163,15 @@ def init_ssm_state(cfg: ModelConfig, batch: int, dtype=torch.float32, device=Non
 
 
 def ssm_decode_step(params: dict, cfg: ModelConfig, x: torch.Tensor,
-                    state: dict) -> Tuple[torch.Tensor, dict]:
+                    state: dict, tp=None) -> Tuple[torch.Tensor, dict]:
     """One token. x ``[B, 1, d]`` -> (``[B, 1, d]``, the new state);
-    ``state`` is left as it was."""
-    u = x[:, 0] @ params["in_proj_u"]  # [B, di]
+    ``state`` is left as it was. ``tp``: the ``tree_specs`` placement (the
+    state's channels shard with the weights'), forward only."""
+    mode = _tp_mode(params, cfg, tp)
+    if mode == "gather":
+        raise ValueError("decode over the model axis takes the tree_specs placement, whose "
+                         "d_inner leaves all shard")
+    u = x[:, 0] @ params["in_proj_u"]  # [B, di] (the rank's channels)
     z = x[:, 0] @ params["in_proj_z"]
     conv_in = torch.cat([state["conv"], u[:, None, :].to(state["conv"].dtype)], dim=1)
     # the ring's dtype meets the weights' in the promoted type, as in jnp
@@ -144,12 +179,17 @@ def ssm_decode_step(params: dict, cfg: ModelConfig, x: torch.Tensor,
     u_c = F.silu(torch.einsum("bkd,dk->bd", conv_in.to(ring), params["conv_w"].to(ring))
                  + params["conv_b"])
     new_conv = conv_in[:, 1:]
-    proj = (u_c @ params["x_proj"].to(u_c.dtype)).float()
+    proj = u_c @ params["x_proj"].to(u_c.dtype)
+    if mode == "channels":
+        proj = tp.model.all_reduce(proj)
+    proj = proj.float()
     dt, B_t, C_t = torch.split(proj, [cfg.dt_rank, cfg.ssm_state, cfg.ssm_state], dim=-1)
     dt = F.softplus(dt @ params["dt_proj"].float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     dA = torch.exp(dt[..., None] * A[None])  # [B, di, st]
     h = dA * state["h"] + (dt * u_c.float())[..., None] * B_t[:, None, :]
     y = torch.einsum("bds,bs->bd", h, C_t) + u_c.float() * params["D"][None]
-    out = (y.to(x.dtype) * F.silu(z))[:, None, :] @ params["out_proj"]
-    return out, {"conv": new_conv, "h": h}
+    out = (y.to(x.dtype) * F.silu(z))[:, None, :]
+    if mode == "channels":
+        out = tp.model.gather(out, 2)
+    return out @ params["out_proj"], {"conv": new_conv, "h": h}

@@ -20,8 +20,15 @@ indexes the stacked leaves, so autograd accumulates into the stacked
 tensors; with ``ModelOptions.remat`` each group's body runs under
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
 scanned body), so a group's activations are recomputed in the backward
-pass. The reference's sharding annotations are the identity without a
-mesh and have no counterpart.
+pass.
+
+The reference's sharding annotations are GSPMD constraints; here ``tp``
+(a ``sharding.tensor_parallel.LMParallel``) carries the model axis, and
+the functions take the rank's shards of the parameters (and of a decode
+state): each block runs its layers tensor-parallel, the embedding looks
+up the rank's vocab rows and the head leaves the logits vocab-sharded
+(``LMParallel.cross_entropy`` takes them as they are). Without ``tp`` the
+path is the unsharded one, unchanged.
 """
 from __future__ import annotations
 
@@ -163,45 +170,57 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, dtype=None, device
 
 
 # ------------------------------------------------------------------ blocks
+def _ffn_tp(blk: dict, cfg: ModelConfig, tp):
+    """``tp`` where the SwiGLU's ``d_ff`` is this rank's chunk, else None."""
+    if tp is None or not tp.split(blk["mlp"]["w_gate"].shape[1], cfg.d_ff):
+        return None
+    return tp
+
+
 def apply_block(blk: dict, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
-                positions: torch.Tensor, opts: ModelOptions):
+                positions: torch.Tensor, opts: ModelOptions, tp=None):
     """Training/prefill block. Returns (h, moe_aux_loss), the aux 0 without
-    a MoE."""
+    a MoE. ``tp``: the rank's shards over the model axis."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if cfg.layer_kind(layer_idx) == "attn":
         a = attn_mod.attention_forward(
             blk["attn"], cfg, rms_norm(h, blk["attn_norm"], cfg.norm_eps), positions,
             q_block=opts.q_block, kv_block=opts.kv_block,
-            skip_masked_blocks=opts.skip_masked_blocks, bf16_probs=opts.bf16_probs)
+            skip_masked_blocks=opts.skip_masked_blocks, bf16_probs=opts.bf16_probs, tp=tp)
         h = h + a
     else:
         h = h + ssm_mod.ssm_forward(blk["ssm"], cfg, rms_norm(h, blk["ssm_norm"], cfg.norm_eps),
-                                    associative=opts.associative_scan)
+                                    associative=opts.associative_scan, tp=tp)
     if "mlp" in blk:
-        h = h + swiglu(blk["mlp"], rms_norm(h, blk["ffn_norm"], cfg.norm_eps))
+        h = h + swiglu(blk["mlp"], rms_norm(h, blk["ffn_norm"], cfg.norm_eps),
+                       _ffn_tp(blk, cfg, tp))
     elif "moe" in blk:
         y, aux = moe_mod.moe_forward(blk["moe"], cfg, rms_norm(h, blk["ffn_norm"], cfg.norm_eps),
-                                     chunks=opts.moe_chunks)
+                                     chunks=opts.moe_chunks, tp=tp)
         h = h + y
     return h, aux
 
 
 def apply_block_decode(blk: dict, cfg: ModelConfig, layer_idx: int, h: torch.Tensor,
-                       state: dict, pos: int):
-    """One-token decode block. Returns (h, new_state)."""
+                       state: dict, pos: int, tp=None):
+    """One-token decode block. Returns (h, new_state). ``tp``: the rank's
+    shards of the block and of its state."""
     if cfg.layer_kind(layer_idx) == "attn":
         a, new_inner = attn_mod.decode_attention(
-            blk["attn"], cfg, rms_norm(h, blk["attn_norm"], cfg.norm_eps), state["attn"], pos)
+            blk["attn"], cfg, rms_norm(h, blk["attn_norm"], cfg.norm_eps), state["attn"], pos,
+            tp=tp)
         new_state = {**state, "attn": new_inner}
     else:
         a, new_inner = ssm_mod.ssm_decode_step(
-            blk["ssm"], cfg, rms_norm(h, blk["ssm_norm"], cfg.norm_eps), state["ssm"])
+            blk["ssm"], cfg, rms_norm(h, blk["ssm_norm"], cfg.norm_eps), state["ssm"], tp=tp)
         new_state = {**state, "ssm": new_inner}
     h = h + a
     if "mlp" in blk:
-        h = h + swiglu(blk["mlp"], rms_norm(h, blk["ffn_norm"], cfg.norm_eps))
+        h = h + swiglu(blk["mlp"], rms_norm(h, blk["ffn_norm"], cfg.norm_eps),
+                       _ffn_tp(blk, cfg, tp))
     elif "moe" in blk:
-        y, _ = moe_mod.moe_forward(blk["moe"], cfg, rms_norm(h, blk["ffn_norm"], cfg.norm_eps))
+        y, _ = moe_mod.moe_forward(blk["moe"], cfg, rms_norm(h, blk["ffn_norm"], cfg.norm_eps),
+                                   tp=None if tp is None else tp.model_only())
         h = h + y
     return h, new_state
 
@@ -223,16 +242,21 @@ def positions_for(B: int, S: int, device) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ embed
-def embed_inputs(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Token / stub-frontend embedding. Returns (h [B, S, d], positions [B, S])."""
+def _lookup(embed: torch.Tensor, cfg: ModelConfig, tokens: torch.Tensor, tp) -> torch.Tensor:
+    return embed[tokens.long()] if tp is None else tp.embed(embed, tokens, cfg.vocab_size)
+
+
+def embed_inputs(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor], tp=None):
+    """Token / stub-frontend embedding. Returns (h [B, S, d], positions [B, S]).
+    ``tp``: the embedding's rows may be the rank's vocab chunk."""
     embed = params["client"]["embed"]
     if cfg.frontend == "audio_frames":
         h = batch["frame_embeds"].to(embed.dtype)
     elif cfg.frontend == "vision_patches":
-        tok = embed[batch["tokens"].long()]
+        tok = _lookup(embed, cfg, batch["tokens"], tp)
         h = torch.cat([batch["patch_embeds"].to(embed.dtype), tok], dim=1)
     else:
-        h = embed[batch["tokens"].long()]
+        h = _lookup(embed, cfg, batch["tokens"], tp)
     B, S = h.shape[:2]
     return h, positions_for(B, S, h.device)
 
@@ -251,14 +275,16 @@ def privacy_cut(cfg: ModelConfig, h: torch.Tensor, opts: ModelOptions,
 
 # ----------------------------------------------------------------- forward
 def client_forward(client_params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-                   opts: ModelOptions = ModelOptions(), noise: Optional[torch.Tensor] = None):
+                   opts: ModelOptions = ModelOptions(), noise: Optional[torch.Tensor] = None,
+                   tp=None):
     """The hospital side: embedding + privacy-preserving block(s) + cut.
     Returns (feature_map [B, S, d], positions, client_moe_aux): the feature
-    map is the only tensor that crosses the trust boundary."""
-    h, positions = embed_inputs({"client": client_params}, cfg, batch)
+    map is the only tensor that crosses the trust boundary. ``tp``: the
+    rank's shards of the bank over the model axis."""
+    h, positions = embed_inputs({"client": client_params}, cfg, batch, tp)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, blk in enumerate(client_params["blocks"]):
-        h, a = apply_block(blk, cfg, i, h, positions, opts)
+        h, a = apply_block(blk, cfg, i, h, positions, opts, tp)
         aux = aux + a
     h = privacy_cut(cfg, h, opts, noise)
     if opts.detach_cut:
@@ -266,22 +292,31 @@ def client_forward(client_params: dict, cfg: ModelConfig, batch: Dict[str, torch
     return h, positions, aux
 
 
+def _head(h: torch.Tensor, head: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """``h @ head``; over the model axis a vocab-sharded head gives the
+    rank's vocab chunk of the logits."""
+    if tp is not None and tp.split(head.shape[1], cfg.vocab_size):
+        return tp.col(h, head)
+    return h @ head
+
+
 def server_forward(server_params: dict, cfg: ModelConfig, h: torch.Tensor,
                    positions: torch.Tensor, opts: ModelOptions = ModelOptions(),
-                   tied_embed: Optional[torch.Tensor] = None):
+                   tied_embed: Optional[torch.Tensor] = None, tp=None):
     """The server side: the remaining blocks and the head. Returns
-    (logits, moe_aux)."""
+    (logits, moe_aux). ``tp``: the rank's shards of the trunk; the logits
+    are then the rank's vocab chunk where the head shards."""
     n_client, n_prefix, n_groups = stack_split(cfg)
     period = period_of(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for j, blk in enumerate(server_params["prefix"]):
-        h, a = apply_block(blk, cfg, n_client + j, h, positions, opts)
+        h, a = apply_block(blk, cfg, n_client + j, h, positions, opts, tp)
         aux = aux + a
     start = n_client + n_prefix
 
     def group_body(hh, aa, grp):
         for p in range(period):
-            hh, a = apply_block(grp[f"pos{p}"], cfg, start + p, hh, positions, opts)
+            hh, a = apply_block(grp[f"pos{p}"], cfg, start + p, hh, positions, opts, tp)
             aa = aa + a
         return hh, aa
 
@@ -292,21 +327,22 @@ def server_forward(server_params: dict, cfg: ModelConfig, h: torch.Tensor,
             h, aux = group_body(h, aux, grp)
     h = rms_norm(h, server_params["final_norm"], cfg.norm_eps)
     head = tied_embed.T if cfg.tie_embeddings else server_params["lm_head"]
-    logits = h @ head
+    logits = _head(h, head, cfg, tp)
     if opts.logits_f32:
         logits = logits.float()
     return logits, aux
 
 
 def forward(params: dict, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
-            opts: ModelOptions = ModelOptions(), noise: Optional[torch.Tensor] = None):
-    """Full forward (train/prefill). Returns (logits [B, S, V], moe_aux)."""
-    h, positions, aux_c = client_forward(params["client"], cfg, batch, opts, noise)
+            opts: ModelOptions = ModelOptions(), noise: Optional[torch.Tensor] = None, tp=None):
+    """Full forward (train/prefill). Returns (logits [B, S, V], moe_aux);
+    with ``tp`` the logits are the rank's vocab chunk where the head shards."""
+    h, positions, aux_c = client_forward(params["client"], cfg, batch, opts, noise, tp)
     # whole-model convenience for single-trust-domain use; split
     # deployments go through SplitSession, which guards the cut
     logits, aux_s = server_forward(  # splitlint: ignore[SPL101]
         params["server"], cfg, h, positions, opts,
-        tied_embed=params["client"]["embed"] if cfg.tie_embeddings else None)
+        tied_embed=params["client"]["embed"] if cfg.tie_embeddings else None, tp=tp)
     return logits, aux_c + aux_s
 
 
@@ -338,34 +374,43 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bf
 
 
 def decode_step(params: dict, cfg: ModelConfig, state: dict, tokens: torch.Tensor, pos: int,
-                opts: ModelOptions = ModelOptions()):
+                opts: ModelOptions = ModelOptions(), tp=None):
     """One decode step. tokens: [B, 1] integers; ``pos`` the step's
     position. Returns (logits [B, 1, V] float32, new_state); ``state`` is
-    left as it was."""
+    left as it was. ``tp``: the rank's shards of the parameters and of the
+    state (the logits then the rank's vocab chunk where the head shards);
+    ``tp.fetch``, where set, gives each block's weights as the blocks take
+    them (the 2-D weight placement gathers them there)."""
     n_client, n_prefix, n_groups = stack_split(cfg)
     period = period_of(cfg)
-    h = params["client"]["embed"][tokens.long()]
+    fetch = (lambda sub, path, g=None: sub if g is None else tree_map(lambda a: a[g], sub)) \
+        if tp is None or tp.fetch is None else tp.fetch
+    client = fetch({k: v for k, v in params["client"].items() if k != "blocks"}, "client")
+    h = _lookup(client["embed"], cfg, tokens, tp)
     new_state: Dict[str, Any] = {"client": [], "prefix": []}
     for i, blk in enumerate(params["client"]["blocks"]):
-        h, s = apply_block_decode(blk, cfg, i, h, state["client"][i], pos)
+        h, s = apply_block_decode(fetch(blk, f"client/blocks/{i}"), cfg, i, h,
+                                  state["client"][i], pos, tp)
         new_state["client"].append(s)
     h = privacy_cut(cfg, h, opts, None)
     for j, blk in enumerate(params["server"]["prefix"]):
-        h, s = apply_block_decode(blk, cfg, n_client + j, h, state["prefix"][j], pos)
+        h, s = apply_block_decode(fetch(blk, f"server/prefix/{j}"), cfg, n_client + j, h,
+                                  state["prefix"][j], pos, tp)
         new_state["prefix"].append(s)
     start = n_client + n_prefix
     if n_groups > 0:
         group_states = []
         for g in range(n_groups):
-            grp = tree_map(lambda a, g=g: a[g], params["server"]["groups"])
+            grp = fetch(params["server"]["groups"], "server/groups", g)
             st = tree_map(lambda a, g=g: a[g], state["groups"])
             new_st = {}
             for p in range(period):
                 h, new_st[f"pos{p}"] = apply_block_decode(grp[f"pos{p}"], cfg, start + p, h,
-                                                          st[f"pos{p}"], pos)
+                                                          st[f"pos{p}"], pos, tp)
             group_states.append(new_st)
         new_state["groups"] = tree_map(lambda *xs: torch.stack(xs), *group_states)
-    h = rms_norm(h, params["server"]["final_norm"], cfg.norm_eps)
-    head = (params["client"]["embed"].T if cfg.tie_embeddings
-            else params["server"]["lm_head"])
-    return (h @ head).float(), new_state
+    server = fetch({k: v for k, v in params["server"].items()
+                    if k not in ("prefix", "groups")}, "server")
+    h = rms_norm(h, server["final_norm"], cfg.norm_eps)
+    head = client["embed"].T if cfg.tie_embeddings else server["lm_head"]
+    return _head(h, head, cfg, tp).float(), new_state

@@ -12,27 +12,83 @@ row-parallel one.
 
 ``dist.all_gather`` orders its outputs by rank within the axis's group,
 which is the rank's coordinate along the axis.
+
+With the state sharded over the model axis (``core.distributed``), two
+more pieces join them: a gather whose result feeds rank-specific work (a
+rank's own attention heads out of gathered k/v columns) is
+``copy_to(gather(x))``, whose backward sums the ranks' gradients before
+each takes its slice; and ``pmean`` (all-reduce mean forward and backward)
+averages a replicated scalar, such as the MoE's aux loss, over the data
+axes.
+
+Gloo and CUDA tensors: one card can host two ranks only over gloo (NCCL
+refuses two ranks on one device). Gloo has a CUDA form of every collective
+issued here (list all-gather, all-reduce with SUM and MAX, broadcast;
+checked on an H100 with torch 2.11), so nothing is staged through the host.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import contextlib
+from typing import Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.launch.mesh import axis_names
 
+_RECORDS: list = []  # the open ``recording()`` lists, innermost last
+
+
+@contextlib.contextmanager
+def recording():
+    """Inside ``with``, every collective issued here is appended to the
+    yielded list as ``(op, result bytes, the global ranks of its group)``
+    (the dry-run's count, ``roofline.analysis.count_step``)."""
+    record: list = []
+    _RECORDS.append(record)
+    try:
+        yield record
+    finally:
+        _RECORDS.remove(record)
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _record(op: str, nbytes: int, group) -> None:
+    if _RECORDS:
+        _RECORDS[-1].append((op, nbytes,
+                             tuple(dist.get_process_group_ranks(group)) if group is not None
+                             else tuple(range(dist.get_world_size()))))
+
+
+def all_reduce_world_(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over every rank of the default group, in place."""
+    dist.all_reduce(x)
+    _record("all_reduce", _nbytes(x), None)
+    return x
+
 
 class MeshAxis:
     """One named dimension of a ``DeviceMesh`` as this rank sees it: its
     ``size``, this rank's ``index`` along it and the dimension's process
-    ``group``."""
+    ``group``. A tuple of names is those dimensions flattened into one, in
+    order (the production grids' ``("pod", "data")``)."""
 
-    def __init__(self, mesh, name: str):
-        if name not in axis_names(mesh):
-            raise ValueError(f"mesh axes {axis_names(mesh)} have no {name!r} axis")
+    def __init__(self, mesh, name: Union[str, Tuple[str, ...]]):
+        names = (name,) if isinstance(name, str) else tuple(name)
+        missing = [n for n in names if n not in axis_names(mesh)]
+        if missing:
+            raise ValueError(f"mesh axes {axis_names(mesh)} have no {missing[0]!r} axis")
         self.mesh, self.name = mesh, name
-        self.group = mesh.get_group(name)
+        if len(names) == 1:
+            self.group = mesh.get_group(names[0])
+        else:  # the mesh's own bookkeeping tensors stay real under a fake mode
+            from torch.utils._python_dispatch import _disable_current_modes
+
+            with _disable_current_modes():
+                self.group = mesh[names]._flatten("_".join(names)).get_group()
         self.size = dist.get_world_size(self.group)
         self.index = dist.get_rank(self.group)
 
@@ -59,7 +115,9 @@ class MeshAxis:
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(self.size)]
         dist.all_gather(parts, x, group=self.group)
-        return torch.cat(parts, dim=dim)
+        out = torch.cat(parts, dim=dim)
+        _record("all_gather", _nbytes(out), self.group)
+        return out
 
     def gather_ragged(self, x: torch.Tensor, counts: Sequence[int]) -> torch.Tensor:
         """Every rank's ``x`` (``counts[r]`` rows on rank r, counts known to
@@ -70,18 +128,26 @@ class MeshAxis:
         pad[: x.shape[0]] = x
         parts = [torch.empty_like(pad) for _ in range(self.size)]
         dist.all_gather(parts, pad, group=self.group)
+        _record("all_gather", _nbytes(pad) * self.size, self.group)
         return torch.cat([p[:c] for p, c in zip(parts, counts)], dim=0)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+    def all_reduce(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
         out = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(out, group=self.group)
+        self.all_reduce_(out, op)
         return out
+
+    def all_reduce_(self, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``x`` reduced over the axis in place (``x`` contiguous)."""
+        dist.all_reduce(x, op=op, group=self.group)
+        _record("all_reduce", _nbytes(x), self.group)
+        return x
 
     def broadcast(self, x: torch.Tensor, src_index: int) -> torch.Tensor:
         """``x`` of the rank at ``src_index`` along the axis, on every rank
         (in place into ``x``, which the other ranks allocate)."""
         src = dist.get_global_rank(self.group, src_index)
         dist.broadcast(x, src=src, group=self.group)
+        _record("broadcast", _nbytes(x), self.group)
         return x
 
 
@@ -139,6 +205,24 @@ class _ScatterToAxis(torch.autograd.Function):
         return ctx.axis.gather(g, ctx.dim), None, None
 
 
+class _PMean(torch.autograd.Function):
+    """All-reduce mean forward and backward (a replicated mean over the
+    axis of each rank's own value)."""
+
+    @staticmethod
+    def forward(ctx, x, axis: MeshAxis):
+        ctx.axis = axis
+        return axis.all_reduce(x) / axis.size
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce(g) / ctx.axis.size, None
+
+
+def pmean(x: torch.Tensor, axis: MeshAxis) -> torch.Tensor:
+    return _PMean.apply(x, axis)
+
+
 def gather(x: torch.Tensor, axis: MeshAxis, dim: int = 0) -> torch.Tensor:
     return _GatherSlice.apply(x, axis, dim)
 
@@ -164,6 +248,7 @@ def gather_chunks_(views: Sequence[Tuple[torch.Tensor, int]], axis: MeshAxis) ->
     mine = torch.cat([axis.local(v, d).reshape(-1) for v, d in views])
     parts = [torch.empty_like(mine) for _ in range(axis.size)]
     dist.all_gather(parts, mine, group=axis.group)
+    _record("all_gather", _nbytes(mine) * axis.size, axis.group)
     for r, part in enumerate(parts):
         if r == axis.index:
             continue

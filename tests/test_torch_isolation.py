@@ -18,8 +18,8 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for name in names:
     importlib.import_module(name)
 # the training path's, the queue engines', FedAvg's and the audit's modules
-# (and the two deprecated shims), the LM workload's, and the mesh and
-# sharding layer's, among them
+# (and the two deprecated shims), the LM workload's, the mesh and sharding
+# layer's, and the step builders', the dry-run's and the roofline's, among them
 assert {"repro_torch.common.tree", "repro_torch.optim.optimizers", "repro_torch.optim.schedule",
         "repro_torch.core.trainer", "repro_torch.core.session", "repro_torch.core.faults",
         "repro_torch.core.protocol", "repro_torch.core.queue", "repro_torch.core.fedavg",
@@ -30,7 +30,9 @@ assert {"repro_torch.common.tree", "repro_torch.optim.optimizers", "repro_torch.
         "repro_torch.core.distributed", "repro_torch.launch.serve",
         "repro_torch.launch.train", "repro_torch.launch.mesh", "repro_torch.sharding.logical",
         "repro_torch.sharding.specs", "repro_torch.sharding.collectives",
-        "repro_torch.sharding.tensor_parallel"} <= set(names), names
+        "repro_torch.sharding.tensor_parallel", "repro_torch.launch.steps",
+        "repro_torch.launch.dryrun", "repro_torch.roofline.analysis",
+        "repro_torch.roofline.hlo_breakdown"} <= set(names), names
 import numpy as np, torch
 from repro_torch.common.bridge import to_numpy, to_torch
 bits = np.array([0x3F80, 0x7FC1, 0x8000], np.uint16)
@@ -51,7 +53,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", BLOCKED_IMPORTS, REPO], env=ENV,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 71  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 76  # every module was walked
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -196,12 +196,15 @@ def make_host_mesh_cpu():
     return mesh_mod.make_host_mesh(1, device_type="cpu")
 
 
-def test_llm_split_model_axis_above_one_raises_naming_the_later_slice():
-    from repro_torch.core.distributed import llm_step_parts
+def test_llm_split_model_axis_above_one_takes_the_sharded_state():
+    """A model axis above 1 shards the state (``core.distributed``; the
+    4-rank ``llm`` job runs it); a shape-only mesh still has no ranks."""
+    from repro_torch.core.distributed import is_sharded, llm_step_parts
 
-    with pytest.raises(ValueError, match="later slice.*launch/steps"):
-        llm_step_parts(TINY, ModelOptions(q_block=SEQ, kv_block=SEQ), adamw(1e-3), 3,
-                       mesh=ShapeMesh((1, 2), ("clients", "model")))
+    grid = ShapeMesh((1, 2), ("clients", "model"))
+    assert is_sharded(grid) and not is_sharded(ShapeMesh((4, 1), ("clients", "model")))
+    with pytest.raises(ValueError, match="shape-only"):
+        llm_step_parts(TINY, ModelOptions(q_block=SEQ, kv_block=SEQ), adamw(1e-3), 3, mesh=grid)
 
 
 # ------------------------------------------------------ (1, 1) bit-exact
@@ -343,13 +346,14 @@ def test_4_rank_checkpoint_moves_across_grids(tmp_path):
 
 
 def test_4_rank_llm_split_and_refusals(tmp_path):
-    """llm-split (reduced) on (4, 1) against no mesh at rtol 1e-5, in both
-    modes; a model axis above 1 raises; ``n_clients`` that does not divide
-    the client axis raises at the builder."""
+    """llm-split (reduced) on (4, 1), and on (2, 2) with the model axis
+    sharding the state, against no mesh at rtol 1e-5, in both modes;
+    ``n_clients`` that does not divide the client axis raises at the
+    builder."""
     got = _spawn(tmp_path, "llm")
     for mode in ("detached", "e2e"):
         np.testing.assert_allclose(got[mode]["mesh"], got[mode]["none"], rtol=1e-5)
-    assert "later slice" in got["model_axis_error"]
+        np.testing.assert_allclose(got[mode]["model_axis"], got[mode]["none"], rtol=1e-5)
     assert "does not divide" in got["divide_error"]
 
 
@@ -415,11 +419,8 @@ def _rank_main(job: str, rank: int, world: int, out_dir: str) -> None:
         for mode in ("detached", "e2e"):
             result[mode] = {
                 name: fit("llm", "llm-split", mesh, DP, n_clients=4, mode=mode)[1]
-                for name, mesh in (("none", None), ("mesh", cpu_grid(4, 1)))}
-        try:
-            fit("llm", "llm-split", cpu_grid(2, 2), DP, n_clients=4)
-        except ValueError as e:
-            result["model_axis_error"] = str(e)
+                for name, mesh in (("none", None), ("mesh", cpu_grid(4, 1)),
+                                   ("model_axis", cpu_grid(2, 2)))}
         try:
             make_split_mesh(4, 1, n_clients=6, device_type="cpu")
         except ValueError as e:
