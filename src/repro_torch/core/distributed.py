@@ -16,13 +16,25 @@ clients' standard-normal model noise and guard noise ``[C, b, S, d]`` where
 the reference splits its step key (the tests feed the reference's draws).
 
 ``llm_step_parts`` holds the step in the FLAT domain, as the fused engine:
-the trainable tree is one buffer (``common.tree.ravel``, in
-``ravel_pytree``'s leaf order), the model reads views of it, autograd
-returns one flat gradient, and the clip and the optimizer act on the
-buffer. ``apply`` updates the buffer and the optimizer's flat moments in
-place, a slice at a time: the reference donates its state to the step,
-and at llama3.2-1b's width a functional update of the whole buffer would
-hold several copies of 1.2 B (``e2e``: 2.1 B) parameters at once.
+the trainable tree is one buffer a dtype (``common.tree.ravel``, in
+``ravel_pytree``'s leaf order within each; a float32 state has one, a
+bfloat16 config's two: its matrices, and the float32 norms, router,
+``A_log``, ``D`` and ``dt_bias``), the model reads views of them, autograd
+returns one gradient buffer a dtype, and the clip and the optimizer act on
+the buffers. ``apply`` updates the buffers and the optimizer's float32
+moments (one buffer a parameter buffer) in place, a slice at a time: the
+reference donates its state to the step, and at llama3.2-1b's width a
+functional update of the whole buffer would hold several copies of 1.2 B
+(``e2e``: 2.1 B) parameters at once.
+
+Dtypes follow the reference's step (``clip_by_global_norm``, ``adamw``,
+``apply_updates`` over its trees): a bf16 leaf's gradient is bf16; the
+global norm is float32 (each buffer's float32 sum of squares); the clipped
+gradient is float32 (a bf16 gradient is never rounded after the scale:
+each slice is scaled in float32 as the update reads it); the moments are
+float32; the update is rounded to the leaf's dtype, then added to the
+weight in that dtype. No float32 copy of a 2-byte buffer is made, only of
+a slice.
 ``make_guarded_llm_step`` wraps it as the reference's functional step over
 the canonical state (tree-shaped moments, copied into flat buffers a step).
 
@@ -60,7 +72,7 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.tree import ravel, tree_leaves, tree_map
+from repro_torch.common.tree import buffers, dtype_groups, ravel, tree_leaves, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.adapters import SplitAdapter
 from repro_torch.core.trainer import CLIENT_AXIS, MODEL_AXIS, check_mesh
@@ -313,19 +325,23 @@ def llm_state_specs(state: dict, mesh, *, shared_bank: bool = False, mode: str =
 
 
 def _owned_segments(trainable_specs, template, mesh):
-    """``(lo, hi)`` ranges of the flat buffer of this rank's blocks
-    (``ravel`` order) that it counts in the global norm, adjacent ranges
-    merged."""
-    segs, off = [], 0
-    for leaf, spec in zip(tree_leaves(template), spec_leaves(trainable_specs)):
-        n = math.prod(d // _axes_size(mesh, ax) for d, ax in zip(leaf.shape, spec))
-        if owner(spec, mesh):
-            if segs and segs[-1][1] == off:
-                segs[-1] = (segs[-1][0], off + n)
-            else:
-                segs.append((off, off + n))
-        off += n
-    return segs
+    """Per buffer of ``ravel`` (:func:`common.tree.dtype_groups` of
+    ``template``'s leaves): ``(lo, hi)`` ranges of this rank's blocks in it
+    that it counts in the global norm, adjacent ranges merged."""
+    leaves, specs = tree_leaves(template), spec_leaves(trainable_specs)
+    out = []
+    for group in dtype_groups(leaves):
+        segs, off = [], 0
+        for i in group:
+            n = math.prod(_local_shape(leaves[i].shape, specs[i], mesh))
+            if owner(specs[i], mesh):
+                if segs and segs[-1][1] == off:
+                    segs[-1] = (segs[-1][0], off + n)
+                else:
+                    segs.append((off, off + n))
+            off += n
+        out.append(segs)
+    return out
 
 
 def _local_shape(shape, spec, mesh) -> Tuple[int, ...]:
@@ -333,21 +349,28 @@ def _local_shape(shape, spec, mesh) -> Tuple[int, ...]:
 
 
 def _zero1_plan(tr_specs, opt_specs, template, mesh):
-    """Per trainable leaf (``ravel`` order): its block's shape, its moments'
-    block's shape and the dim (or ``None``) along which ZeRO-1 splits the
-    moments' block further over the data axes."""
-    plan = []
+    """Per buffer of ``ravel``, per trainable leaf in it: its block's shape,
+    its moments' block's shape and the dim (or ``None``) along which ZeRO-1
+    splits the moments' block further over the data axes."""
+    rows = []
     for leaf, ps, ms in zip(tree_leaves(template), spec_leaves(tr_specs), spec_leaves(opt_specs)):
         dims = [i for i, (a, b) in enumerate(zip(ps, ms)) if a != b]
-        plan.append((_local_shape(leaf.shape, ps, mesh), _local_shape(leaf.shape, ms, mesh),
+        rows.append((_local_shape(leaf.shape, ps, mesh), _local_shape(leaf.shape, ms, mesh),
                      dims[0] if dims else None))
-    return plan
+    return [[rows[i] for i in group] for group in dtype_groups(tree_leaves(template))]
 
 
-def _apply_zero1_(opt, flat, opt_state, step, g, plan, data: MeshAxis) -> None:
-    """The optimizer's update with the moments sharded over the data axes
-    (ZeRO-1): each leaf's data chunk of its block updated with the
-    moments' chunk, then the block all-gathered over the data axes."""
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """The clipped gradient ``g * scale`` in float32, as the reference's
+    (a 2-byte ``g`` times the float32 scale is float32 there)."""
+    return g.float() * scale
+
+
+def _apply_zero1_(opt, flat, opt_state, step, g, scale, plan, data: MeshAxis) -> None:
+    """The optimizer's update of one buffer with the moments sharded over
+    the data axes (ZeRO-1): each leaf's data chunk of its block updated
+    with the moments' chunk, then the block all-gathered over the data
+    axes. ``g`` is clipped by ``scale`` as the update reads it."""
     p_views = torch.split(flat, [math.prod(p) for p, _, _ in plan])
     g_views = torch.split(g, [math.prod(p) for p, _, _ in plan])
     m_views = {k: torch.split(v, [math.prod(m) for _, m, _ in plan]) for k, v in opt_state.items()}
@@ -355,14 +378,39 @@ def _apply_zero1_(opt, flat, opt_state, step, g, plan, data: MeshAxis) -> None:
         p, gg = p_views[i].view(p_shape), g_views[i].view(p_shape)
         moments = {k: v[i].view(m_shape) for k, v in m_views.items()}
         if dim is None:
-            upd, new = opt.update(gg, moments, p, step)
+            upd, new = opt.update(_clipped(gg, scale), moments, p, step)
             p += upd
         else:
             part = data.local(p, dim)
-            upd, new = opt.update(data.local(gg, dim), moments, part, step)
+            upd, new = opt.update(_clipped(data.local(gg, dim), scale), moments, part, step)
             p.copy_(data.gather(part + upd, dim))
         for k, v in new.items():
             moments[k].copy_(v)
+
+
+def _sumsq(x: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of squares of a 1-D buffer; a 2-byte one a slice at
+    a time, so that no float32 copy of it is made."""
+    if x.dtype == torch.float32:
+        return torch.square(torch.linalg.vector_norm(x))
+    sq = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, x.numel(), UPDATE_SLICE):
+        sq = sq + torch.sum(torch.square(x[lo:lo + UPDATE_SLICE].float()))
+    return sq
+
+
+def _global_norm(g) -> torch.Tensor:
+    """The float32 global norm of a gradient (one buffer, or one a dtype)."""
+    if isinstance(g, torch.Tensor) and g.dtype == torch.float32:
+        return torch.linalg.vector_norm(g)  # no temporary of the buffer's size
+    return torch.sqrt(sum((_sumsq(x) for x in buffers(g)),
+                          torch.zeros((), dtype=torch.float32, device=buffers(g)[0].device)))
+
+
+def _check_buffers(g, n: int, dtype) -> None:
+    if len(buffers(g)) != n:
+        raise ValueError(f"the step was built for {n} buffer(s) (dtype={dtype}), got "
+                         f"{len(buffers(g))}: pass the state's dtype as dtype=")
 
 
 def _client_rows(cfg, opts, guard, shared_bank, banks, inputs, model_noise, guard_noise,
@@ -402,24 +450,27 @@ def _trunk_loss(cfg, opts, server_params, h, labels, tp=None):
 
 
 def _flat_grad(loss_fn, e2e, flat, unravel, banks, batch, model_noise, guard_noise):
-    """``(grad, loss, ce)`` of ``loss_fn`` at the flat trainable buffer."""
-    fl = flat.detach().requires_grad_(True)
+    """``(grad, loss, ce)`` of ``loss_fn`` at the flat trainable buffer(s):
+    the gradient one buffer a buffer of ``flat``, in its dtype."""
+    fl = [b.detach().requires_grad_(True) for b in buffers(flat)]
     with torch.enable_grad():
-        tr = unravel(fl)
+        tr = unravel(fl[0] if isinstance(flat, torch.Tensor) else tuple(fl))
         server, cb = (tr, banks) if not e2e else (tr["server"], tr["client_banks"])
         loss, ce = loss_fn(server, cb, batch, model_noise, guard_noise)
-        (g,) = torch.autograd.grad(loss, fl)
-    return g, loss.detach(), ce.detach()
+        g = torch.autograd.grad(loss, fl)
+    return (g[0] if isinstance(flat, torch.Tensor) else tuple(g)), loss.detach(), ce.detach()
 
 
 def _sharded_step_parts(cfg, opts, opt, n_clients, mesh, *, grad_clip, privacy, shared_bank,
-                        mode, zero1: bool = False) -> "LLMStepParts":
+                        mode, zero1: bool = False, dtype=None) -> "LLMStepParts":
     """``llm_step_parts`` over a sharded layout (see the module docstring):
     ``flat`` is the rank's blocks of the trainable tree, ``banks`` its own
     clients' banks, ``batch`` and the noise whole or this rank's clients'
     rows (a leading dim of ``n_clients`` is cut to the rank's). ``zero1``
     (a production grid): the moments' blocks are split over the data axes
-    as ``tree_specs(zero1=True)`` places them (``_apply_zero1_``)."""
+    as ``tree_specs(zero1=True)`` places them (``_apply_zero1_``).
+    ``dtype``: the trainable leaves' dtype as ``init_llm_state``'s (the
+    buffers' layout)."""
     e2e = mode == "e2e"
     lay = llm_layout(mesh, n_clients)
     if lay.production and e2e:
@@ -430,7 +481,7 @@ def _sharded_step_parts(cfg, opts, opt, n_clients, mesh, *, grad_clip, privacy, 
     trunk_tp = LMParallel(lay.model, data=cax if lay.production else None)
     bank_tp = LMParallel(lay.model) if lay.production else None
     guard = PrivacyGuard(privacy)
-    template = llm_state_template(cfg, n_clients, opt, None, shared_bank, mode)
+    template = llm_state_template(cfg, n_clients, opt, dtype, shared_bank, mode)
     specs = llm_state_specs(template, mesh, shared_bank=shared_bank, mode=mode, zero1=zero1)
     tr_specs = trainable_of(specs, not e2e)
     segments = _owned_segments(tr_specs, trainable_of(template, not e2e), mesh)
@@ -461,45 +512,57 @@ def _sharded_step_parts(cfg, opts, opt, n_clients, mesh, *, grad_clip, privacy, 
     def grad(flat, unravel, banks, batch, model_noise=None, guard_noise=None):
         g, loss, ce = _flat_grad(loss_fn, e2e, flat, unravel, banks, batch, model_noise,
                                  guard_noise)
-        if lay.production and cax.size > 1:  # the data ranks' mean gradient and loss
-            cax.all_reduce_(g).div_(cax.size)
+        if lay.production and cax.size > 1:
+            # the data ranks' mean gradient and loss; a bf16 gradient is summed
+            # in bf16 (the all-reduce of GSPMD's bf16 partial gradients) and
+            # halved exactly (the data axes are powers of two)
+            for x in buffers(g):
+                cax.all_reduce_(x).div_(cax.size)
             loss, ce = cax.all_reduce(loss) / cax.size, cax.all_reduce(ce) / cax.size
         return g, {"loss": loss, "ce": ce}
 
     def apply(flat, opt_state, step, g):
+        _check_buffers(g, len(segments), dtype)
         with torch.no_grad():
-            sq = torch.zeros((), dtype=torch.float32, device=g.device)
-            for lo, hi in segments:
-                sq = sq + torch.square(torch.linalg.vector_norm(g[lo:hi]))
+            sq = torch.zeros((), dtype=torch.float32, device=buffers(g)[0].device)
+            for x, segs in zip(buffers(g), segments):
+                for lo, hi in segs:
+                    sq = sq + _sumsq(x[lo:hi])
             all_reduce_world_(sq)  # the mesh covers the world
             gnorm = torch.sqrt(sq)
-            g.mul_(torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0))
+            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
             if z_plan is None:
-                _update_(opt, flat, opt_state, step, g)
+                _update_(opt, flat, opt_state, step, g, scale)
             else:
-                _apply_zero1_(opt, flat, opt_state, step, g, z_plan, cax)
+                for i, (p, gg) in enumerate(zip(buffers(flat), buffers(g))):
+                    _apply_zero1_(opt, p, {k: buffers(v)[i] for k, v in opt_state.items()},
+                                  step, gg, scale, z_plan[i], cax)
         return gnorm
 
     return LLMStepParts(grad, apply, not e2e)
 
 
-def _update_(opt, flat, opt_state, step, g):
+def _update_(opt, flat, opt_state, step, g, scale):
     """The optimizer's elementwise update of ``flat`` and of its flat
-    moments, in place, ``UPDATE_SLICE`` elements at a time."""
-    for lo in range(0, flat.numel(), UPDATE_SLICE):
-        part = slice(lo, lo + UPDATE_SLICE)
-        upd, new = opt.update(g[part], {k: v[part] for k, v in opt_state.items()},
-                              flat[part], step)
-        flat[part] += upd
-        for k, v in new.items():
-            opt_state[k][part] = v
+    moments (a buffer each, or one a dtype), in place, ``UPDATE_SLICE``
+    elements at a time, each slice of ``g`` clipped by ``scale`` in float32
+    as the update reads it (``g`` is left as it is)."""
+    for i, (p, gg) in enumerate(zip(buffers(flat), buffers(g))):
+        moments = {k: buffers(v)[i] for k, v in opt_state.items()}
+        for lo in range(0, p.numel(), UPDATE_SLICE):
+            part = slice(lo, lo + UPDATE_SLICE)
+            upd, new = opt.update(_clipped(gg[part], scale),
+                                  {k: v[part] for k, v in moments.items()}, p[part], step)
+            p[part] += upd
+            for k, v in new.items():
+                moments[k][part] = v
 
 
 def llm_step_parts(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer, n_clients: int, *,
                    grad_clip: float = 1.0, privacy: Optional[DPConfig] = None,
                    shared_bank: bool = False, mode: str = "detached",
-                   mesh=None, zero1: bool = False) -> LLMStepParts:
-    """The two halves of one guarded step over a flat trainable buffer.
+                   mesh=None, zero1: bool = False, dtype=None) -> LLMStepParts:
+    """The two halves of one guarded step over the flat trainable buffers.
 
     ``grad(flat, unravel, banks, batch, model_noise=None, guard_noise=None)
     -> (grad, {"loss", "ce"})``: ``unravel(flat)`` is the server
@@ -508,13 +571,14 @@ def llm_step_parts(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer, n_clien
     S], "labels": [C, b, S]}`` (or the stub frontends' inputs), the noise
     ``[C, b, S, d]``. Each client runs its bank; the guard releases the
     ``C*b`` rows at once; the server takes them concatenated (paper Alg. 1
-    l.11). ``grad`` is the flat gradient.
+    l.11). ``grad`` is the flat gradient (a buffer a buffer of ``flat``).
 
     ``apply(flat, opt_state, step, grad) -> grad_norm``: the global-norm
-    clip (``grad`` scaled in place) and the optimizer's update of ``flat``
-    and of ``opt_state``'s flat moments, in place, ``UPDATE_SLICE``
-    elements at a time (the repo's optimizers are elementwise, so a slice's
-    update is the whole update's, bit for bit).
+    clip and the optimizer's update of ``flat`` and of ``opt_state``'s
+    flat moments, in place, ``UPDATE_SLICE`` elements at a time, each slice
+    of ``grad`` scaled in float32 as it is read (``grad`` is left as it
+    is; the repo's optimizers are elementwise, so a slice's update is the
+    whole update's, bit for bit).
 
     ``mesh`` (a client axis; a model axis of size 1): each rank runs its
     clients' banks and releases their rows (the guard's plan chosen for all
@@ -524,7 +588,9 @@ def llm_step_parts(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer, n_clien
     reads its clients' rows. A sharded mesh (``is_sharded``: a model axis
     above 1, or a production grid) takes the sharded layout
     (``_sharded_step_parts``; ``zero1`` its moments split over the data
-    axes too)."""
+    axes too). ``dtype``: the trainable leaves' dtype, as
+    ``init_llm_state``'s (``None``: the config's); the sharded layout reads
+    its buffers' layout from it."""
     cfg = untie(cfg)
     e2e = mode == "e2e"
     if e2e:
@@ -538,7 +604,7 @@ def llm_step_parts(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer, n_clien
     if is_sharded(mesh):
         return _sharded_step_parts(cfg, opts, opt, n_clients, mesh, grad_clip=grad_clip,
                                    privacy=privacy, shared_bank=shared_bank, mode=mode,
-                                   zero1=zero1)
+                                   zero1=zero1, dtype=dtype)
     if zero1:
         raise ValueError("zero1 splits the moments over a production grid's data axes")
     cax = _client_axis(mesh, n_clients)
@@ -566,10 +632,9 @@ def llm_step_parts(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer, n_clien
 
     def apply(flat, opt_state, step, g):
         with torch.no_grad():
-            # the norm without a temporary of the buffer's size
-            gnorm = torch.linalg.vector_norm(g)
-            g.mul_(torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0))
-            _update_(opt, flat, opt_state, step, g)
+            gnorm = _global_norm(g)
+            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+            _update_(opt, flat, opt_state, step, g, scale)
         return gnorm
 
     return LLMStepParts(grad, apply, not e2e)
@@ -583,7 +648,8 @@ def trainable_of(state: dict, detached: bool):
 def make_guarded_llm_step(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer,
                           n_clients: int, *, grad_clip: float = 1.0,
                           privacy: Optional[DPConfig] = None, shared_bank: bool = False,
-                          mode: str = "detached", mesh=None, zero1: bool = False):
+                          mode: str = "detached", mesh=None, zero1: bool = False,
+                          dtype=None):
     """``step(state, batch, model_noise=None, guard_noise=None) -> (state,
     {"loss", "ce", "grad_norm"})`` over the canonical state, with the
     ``PrivacyGuard`` release at the cut; the reference's step with the
@@ -596,16 +662,20 @@ def make_guarded_llm_step(cfg: ModelConfig, opts: ModelOptions, opt: Optimizer,
     rank's blocks (``sharding.tensor_parallel.shard_tree`` of a whole state
     under :func:`llm_state_specs`) and every rank
     of the mesh calls the step (``llm_step_parts``; ``zero1`` on a
-    production grid: the moments' blocks split over the data axes too)."""
+    production grid: the moments' blocks split over the data axes too).
+    ``dtype``: the state's trainable dtype, as ``init_llm_state``'s
+    (``None``: the config's); only the sharded layout reads it."""
     if mesh is not None:
         check_mesh(mesh, mesh_device_type(mesh) or "cpu", client_axis=None)
     parts = llm_step_parts(cfg, opts, opt, n_clients, grad_clip=grad_clip, privacy=privacy,
-                           shared_bank=shared_bank, mode=mode, mesh=mesh, zero1=zero1)
+                           shared_bank=shared_bank, mode=mode, mesh=mesh, zero1=zero1,
+                           dtype=dtype)
     guard = PrivacyGuard(privacy)
 
     def step(state, batch, model_noise=None, guard_noise=None):
-        flat, unravel = ravel(trainable_of(state, parts.detached))
-        moments = {k: ravel(v) for k, v in state["opt"].items()}
+        trainable = trainable_of(state, parts.detached)
+        flat, unravel = ravel(trainable)
+        moments = {k: ravel(v, like=trainable) for k, v in state["opt"].items()}
         opt_state = {k: v[0] for k, v in moments.items()}
         g, metrics = parts.grad(flat, unravel, state["client_banks"], batch, model_noise,
                                 guard_noise)

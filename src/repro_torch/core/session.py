@@ -739,8 +739,10 @@ class LLMSplitEngine(_Engine):
     state broadcasts it to ``[n_clients, ...]`` and back. ``mode="e2e"``
     trains per-client banks and rejects ``shared_bank``.
 
-    The native state holds the trainable part as one flat buffer and the
-    optimizer's moments as flat buffers (``llm_step_parts``), which the
+    The native state holds the trainable part as one flat buffer a dtype
+    (a bfloat16 config's matrices stay bfloat16 beside its float32 norms,
+    as the reference's state) and the optimizer's float32 moments as flat
+    buffers alike (``llm_step_parts``), which the
     steps update in place, as the reference donates its state: the
     engine's canonical state is views of them, and ``SplitSession.state``
     copies it (``updates_in_place``). The weights are drawn leaf by leaf
@@ -779,7 +781,8 @@ class LLMSplitEngine(_Engine):
         # raises for e2e with a shared bank
         self.parts = llm_step_parts(adapter.cfg, adapter.opts, opt, tc.n_clients,
                                     grad_clip=tc.grad_clip, privacy=tc.privacy,
-                                    shared_bank=shared_bank, mode=tc.mode, mesh=mesh)
+                                    shared_bank=shared_bank, mode=tc.mode, mesh=mesh,
+                                    dtype=adapter.dtype)
         self.sharded = is_sharded(mesh)
         self.specs = None
         if self.sharded:
@@ -790,11 +793,13 @@ class LLMSplitEngine(_Engine):
 
     def _native_state(self, banks, server, opt_state, step, privacy):
         """The native state of a canonical one's parts; ``opt_state`` maps
-        each moment to its tree (``None``: fresh moments)."""
-        flat, self._unravel = ravel(trainable_of({"server": server, "client_banks": banks},
-                                                 self.parts.detached))
+        each moment to its tree (``None``: fresh moments). ``flat`` is one
+        buffer a dtype of the trainable leaves (``common.tree.ravel``), each
+        moment one float32 buffer a ``flat`` buffer."""
+        trainable = trainable_of({"server": server, "client_banks": banks}, self.parts.detached)
+        flat, self._unravel = ravel(trainable)
         opt_flat = (self.opt.init(flat) if opt_state is None
-                    else {k: ravel(v)[0] for k, v in opt_state.items()})
+                    else {k: ravel(v, like=trainable)[0] for k, v in opt_state.items()})
         return {"client_banks": banks if self.parts.detached else None, "flat": flat,
                 "opt": opt_flat, "step": step, "privacy": privacy}
 

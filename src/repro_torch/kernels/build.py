@@ -34,7 +34,8 @@ _c_ptr, _c_int, _c_ll, _c_float = (ctypes.c_void_p, ctypes.c_int,
 # the C interface of each source, by function; every pointer and the stream
 # as c_void_p. The serving kernels' ``<name>_launch_plan_typed`` takes the
 # element type as an int (0 float32, 1 bfloat16, 2 float16); their
-# ``<name>_launch_plan`` is its float32 case. The LM kernels' entry point ``<name>_launch`` makes its own
+# ``<name>_launch_plan`` is its float32 case; ``dp_release_launch_plan_mixed``
+# takes the noise's type apart (x's, or 0 for float32 beside a 2-byte x). The LM kernels' entry point ``<name>_launch`` makes its own
 # tile or lane choice, which ``flash_attention_launch_tiles`` and
 # ``selective_scan_launch_lanes`` take as an argument, so that it can be
 # timed against another. The serving kernels' ``<name>_launch_plan`` takes
@@ -50,7 +51,10 @@ SIGNATURES = {
                                                               _c_int, _c_ll, _c_int, _c_ptr),
                    "dp_release_launch_plan_typed": (_c_ptr,) * 4 + (
                        _c_ll, _c_ll, _c_float, _c_float, _c_int, _c_ll, _c_int, _c_int,
-                       _c_ptr)},
+                       _c_ptr),
+                   "dp_release_launch_plan_mixed": (_c_ptr,) * 4 + (
+                       _c_ll, _c_ll, _c_float, _c_float, _c_int, _c_ll, _c_int, _c_int,
+                       _c_int, _c_ptr)},
     "flash_attention": {
         "flash_attention_launch": (_c_ptr,) * 4 + (_c_int,) * 8 + (_c_float, _c_ptr),
         "flash_attention_launch_tiles": (_c_ptr,) * 4 + (_c_int,) * 8 + (_c_float, _c_int,

@@ -13,8 +13,10 @@ sorted items), both updated by :func:`count` under a lock, since client
 threads may launch at once. :func:`release_plan` chooses how a shape runs
 from the shape, the element type and the card's SM count alone, so every
 branch can be tested on the CPU and named in a report. The kernel takes
-float32, bfloat16 or float16 (:data:`DTYPES`; x and the noise of one type),
-sums in float32 and stores the release in x's type, as the TPU kernel does.
+x in float32, bfloat16 or float16 (:data:`DTYPES`) and the noise in x's
+type or in float32 (the guard draws float32 noise beside a bf16 cut, as
+the reference's), sums and adds ``sigma * noise`` in float32 and rounds the
+release once to x's type, as the TPU kernel does.
 """
 from __future__ import annotations
 
@@ -108,20 +110,21 @@ def count(plan: dict) -> None:
 
 
 def check_inputs(x: torch.Tensor, noise: Optional[torch.Tensor], sigma: float) -> None:
-    """Raise unless the kernel takes these tensors: x ``[B, ...]``, and
-    where ``sigma > 0`` noise of x's shape, type and device; both
-    contiguous, of one of :data:`DTYPES`."""
+    """Raise unless the kernel takes these tensors: x ``[B, ...]`` of one
+    of :data:`DTYPES`, and where ``sigma > 0`` noise of x's shape and
+    device, in x's type or in float32; both contiguous."""
     if x.dim() < 1:
         raise ValueError("dp_release wants x [B, ...]")
     use_noise = sigma > 0.0
     if use_noise and tuple(noise.shape) != tuple(x.shape):
         raise ValueError(f"noise {tuple(noise.shape)} != x {tuple(x.shape)}")
     for t in [x] + ([noise] if use_noise else []):
-        if (t.device != x.device or t.dtype != x.dtype or t.dtype not in DTYPES
+        types = (x.dtype,) if t is x else (x.dtype, torch.float32)
+        if (t.device != x.device or t.dtype not in types or t.dtype not in DTYPES
                 or not t.is_contiguous()):
-            raise ValueError("dp_release kernel takes contiguous float32, bfloat16 or "
-                             "float16 tensors of one type on one CUDA device; got "
-                             f"{t.dtype} on {t.device} beside x's {x.dtype}, "
+            raise ValueError("dp_release kernel takes a contiguous float32, bfloat16 or "
+                             "float16 x and noise of x's type or float32, on one CUDA "
+                             f"device; got {t.dtype} on {t.device} beside x's {x.dtype}, "
                              f"contiguous={t.is_contiguous()}")
 
 
@@ -143,11 +146,11 @@ def _launch(x, noise, clip_norm: float, sigma: float,
     partials = torch.empty((rows, k), device=x.device, dtype=torch.float32) if k > 1 else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.dp_release_launch_plan_typed(
+        err = lib.dp_release_launch_plan_mixed(
             x.data_ptr(), noise.data_ptr() if use_noise else None, out.data_ptr(),
             partials.data_ptr() if partials is not None else None, rows, feats,
             float(clip_norm), float(sigma), k, plan["chunk"], int(plan["vec4"]),
-            DTYPES[x.dtype], stream)
+            DTYPES[x.dtype], DTYPES[noise.dtype if use_noise else x.dtype], stream)
     if err:
         raise RuntimeError(f"dp_release kernel launch failed: CUDA error {err}")
     count(plan)

@@ -20,7 +20,11 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--jobs 6] [--out FILE]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch llama3.2-1b --shape train_4k \\
-      --reduced --seq 64 --batch 8 --mesh 4x2
+      --reduced --seq 64 --batch 8 --mesh 4x2 [--dtype float32]
+
+Every step runs at the config's dtype (the LM configs' bfloat16: train
+holds bf16 matrices beside float32 norms and moments, as the reference);
+``--dtype`` traces the config at another (a float32 run's count).
 """
 from __future__ import annotations
 
@@ -75,10 +79,13 @@ def fake_world(size: int) -> None:
 
 def run_one(arch: str, shape_name: str, *, multi_pod: bool = False, verbose: bool = True,
             opts=None, zero1: bool = False, shared_bank: bool = False, dump_ops: str = None,
-            mesh_shape=None, reduced: bool = False, seq: int = None, batch: int = None):
+            mesh_shape=None, reduced: bool = False, seq: int = None, batch: int = None,
+            dtype: str = None):
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     shape = SHAPES[shape_name]
     if seq or batch:
         shape = dataclasses.replace(shape, seq_len=seq or shape.seq_len,
@@ -165,6 +172,8 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=None, help="sequence length in place of the shape's")
     ap.add_argument("--batch", type=int, default=None, help="global batch in place of the shape's")
     ap.add_argument("--jobs", type=int, default=1, help="cases traced at once, a process each")
+    ap.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
+                    help="the config's dtype in place of its own")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -176,7 +185,7 @@ def main(argv=None):
     kw = dict(multi_pod=args.multi_pod, zero1=args.zero1, opts=args.overrides,
               dump_ops=args.dump_ops,
               mesh_shape=tuple(int(v) for v in args.mesh.split("x")) if args.mesh else None,
-              reduced=args.reduced, seq=args.seq, batch=args.batch)
+              reduced=args.reduced, seq=args.seq, batch=args.batch, dtype=args.dtype)
     tasks = [(arch, shape, kw) for arch, shape in combos]
     if args.jobs > 1:  # each case in a process of its own (each its own fake world)
         with mp.get_context("spawn").Pool(args.jobs, maxtasksperchild=1) as pool:

@@ -5,7 +5,9 @@ Three kinds:
   train   -> the spatio-temporal split train step (client banks over the
              data axes, every data shard one hospital; the trunk
              tensor-parallel over ``model`` and data-parallel over the data
-             axes; AdamW; the detached cut), float32;
+             axes; AdamW; the detached cut), at the config's dtype as the
+             reference's (a bfloat16 config: bf16 matrices beside float32
+             norms and float32 moments; the model noise float32);
   prefill -> the full forward's logits (the paper's cut inline);
   decode  -> ``serve_step``: ONE token against a KV cache / SSM state of
              ``seq_len``.
@@ -43,9 +45,6 @@ from repro_torch.sharding.collectives import MeshAxis
 from repro_torch.sharding.logical import P, spec_placements
 from repro_torch.sharding.specs import _axes_size, _map_specs, batch_specs, tree_specs
 from repro_torch.sharding.tensor_parallel import LMParallel, local_shard, mesh_axis, whole_of
-
-TRAIN_DTYPE = torch.float32  # the port's llm-split trains in float32 (one flat buffer)
-
 
 class Lowering(NamedTuple):
     fn: Any               # the rank's step
@@ -130,13 +129,13 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, mesh,
     opt = adamw(3e-4, weight_decay=0.1)
     mode = FakeTensorMode()
     with mode:
-        state = distributed.init_llm_state(torch.Generator(), cfg, C, opt, dtype=TRAIN_DTYPE,
+        state = distributed.init_llm_state(torch.Generator(), cfg, C, opt,
                                            shared_bank=shared_bank, device="cpu")
     per_client = model_lib.make_batch_shapes(ucfg, shape, batch_override=b)
     batch = _fake({k: ((C,) + s, dt) for k, (s, dt) in per_client.items()}, mode)
     noise = None
     if ucfg.privacy_noise > 0.0:
-        noise = _fake({"n": ((C, b, shape.seq_len, ucfg.d_model), TRAIN_DTYPE)}, mode)["n"]
+        noise = _fake({"n": ((C, b, shape.seq_len, ucfg.d_model), torch.float32)}, mode)["n"]
     state_specs = distributed.llm_state_specs(state, mesh, shared_bank=shared_bank, zero1=zero1)
     batch_sp = batch_specs(batch, mesh)
     noise_sp = None if noise is None else batch_specs(noise, mesh)
@@ -309,7 +308,7 @@ def build_group_probe(cfg: ModelConfig, shape: ShapeConfig, mesh,
     period = transformer.period_of(ucfg)
     start = n_client + n_prefix
     mode = FakeTensorMode()
-    dtype = TRAIN_DTYPE if shape.kind == "train" else getattr(torch, ucfg.dtype)
+    dtype = getattr(torch, ucfg.dtype)
     with mode:
         groups = transformer.init_server(torch.Generator(), ucfg, dtype, "cpu")["groups"]
         grp = tree_map(lambda x: torch.empty(x.shape[1:], dtype=x.dtype), groups)

@@ -9,6 +9,14 @@ Adam direction before the ``-lr`` scale; the bias corrections are float32
 powers of ``step + 1``; ``lr`` may be a schedule of the int32 step tensor.
 ``update`` builds no autograd graph: call it on gradients, under
 ``torch.no_grad()``.
+
+Dtypes follow JAX's promotion, where torch's would differ: a 0-d float32
+tensor (the clip's scale, a schedule's ``lr``) times a bfloat16 or float16
+tensor is float32 in JAX (a strongly typed operand) and stays 2-byte in
+torch, so :func:`_promoted` casts first. A Python float is weakly typed in
+both. So ``clip_by_global_norm`` hands a bf16 tree's gradient on in
+float32, unrounded; the moments are float32 and the update is rounded to
+the parameter's dtype once, before ``p + u`` in that dtype.
 """
 from __future__ import annotations
 
@@ -16,7 +24,7 @@ from typing import Any, Callable, NamedTuple, Tuple, Union
 
 import torch
 
-from repro_torch.common.tree import tree_global_norm, tree_map
+from repro_torch.common.tree import sqrt, tree_global_norm, tree_map
 
 
 class Optimizer(NamedTuple):
@@ -24,11 +32,20 @@ class Optimizer(NamedTuple):
     update: Callable[..., Tuple[Any, Any]]  # (grads, state, params, step) -> (updates, state)
 
 
+def _promoted(x: torch.Tensor, s) -> torch.Tensor:
+    """``x`` in the dtype JAX gives ``x * s``: a tensor ``s`` is strongly
+    typed there (bf16 times float32 is float32), a Python float weakly."""
+    if isinstance(s, torch.Tensor):
+        return x.to(torch.promote_types(x.dtype, s.dtype))
+    return x
+
+
 def clip_by_global_norm(grads, max_norm: float):
-    """``(grads * min(1, max_norm / max(norm, 1e-9)), norm)``."""
+    """``(grads * min(1, max_norm / max(norm, 1e-9)), norm)``; a 2-byte
+    leaf's product is float32, as the reference's."""
     norm = tree_global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), norm
+    return tree_map(lambda g: _promoted(g, scale) * scale, grads), norm
 
 
 def _lr_fn(lr):
@@ -59,7 +76,7 @@ def adamw(
         lr_t = lr_fn(step)
 
         def upd(m, v, p):
-            u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
+            u = (m / bc1) / (sqrt(v / bc2) + eps)
             if weight_decay:
                 u = u + weight_decay * p.float()
             return (-lr_t * u).to(p.dtype)
@@ -80,7 +97,8 @@ def sgd(lr: Union[float, Callable], momentum: float = 0.0) -> Optimizer:
     def update(grads, state, params, step):
         lr_t = lr_fn(step)
         if momentum == 0.0:
-            return tree_map(lambda g, p: (-lr_t * g).to(p.dtype), grads, params), state
+            return tree_map(lambda g, p: (-lr_t * _promoted(g, lr_t)).to(p.dtype), grads,
+                            params), state
         vel = tree_map(lambda v, g: momentum * v + g.float(), state["vel"], grads)
         return tree_map(lambda v, p: (-lr_t * v).to(p.dtype), vel, params), {"vel": vel}
 

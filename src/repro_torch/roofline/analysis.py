@@ -49,7 +49,8 @@ from repro_torch.sharding import collectives
 HW_H100 = {
     # NVIDIA H100 Tensor Core GPU datasheet, SXM5 column: BF16/FP16 Tensor
     # Core 1,979 TFLOPS with sparsity, so 989e12 dense; FP32 67 TFLOPS
-    # (the CUDA cores: float32 products with TF32 off, as the port trains)
+    # (the CUDA cores: float32 products with TF32 off, as the port runs a
+    # float32 config; a bf16 config's matmuls count at the bf16 peak)
     "peak_flops": {torch.bfloat16: 989e12, torch.float16: 989e12, torch.float32: 67e12},
     # same datasheet: GPU memory bandwidth 3.35 TB/s (HBM3, 80 GB)
     "hbm_bw": 3.35e12,

@@ -242,8 +242,14 @@ def scatter_to(x: torch.Tensor, axis: MeshAxis, dim: int = -1) -> torch.Tensor:
 def gather_chunks_(views: Sequence[Tuple[torch.Tensor, int]], axis: MeshAxis) -> None:
     """Fill each ``(view, dim)`` with every rank's chunk along ``dim``, in
     place, from this rank's own chunk of it: ONE all-gather of the chunks
-    packed together. The views may be parts of one flat gradient."""
+    packed together (one a dtype, where the views' dtypes differ). The
+    views may be parts of one flat gradient."""
     if not views:
+        return
+    dtypes = list(dict.fromkeys(v.dtype for v, _ in views))
+    if len(dtypes) > 1:
+        for dt in dtypes:
+            gather_chunks_([(v, d) for v, d in views if v.dtype == dt], axis)
         return
     mine = torch.cat([axis.local(v, d).reshape(-1) for v, d in views])
     parts = [torch.empty_like(mine) for _ in range(axis.size)]

@@ -152,15 +152,16 @@ def test_half_types_match_pallas_within_one_ulp(half, shape, clip, sigma):
 
 def test_kernel_inputs_take_the_half_types_and_refuse_others():
     """What the CUDA wrapper checks before it launches: float32, bfloat16 or
-    float16 tensors of one type, contiguous; int, float64, a mixed pair and
+    float16 tensors, the noise of x's type (or float32: see the test
+    below), contiguous; int, float64, a 2-byte noise beside another x and
     a strided view are refused. The plan of a 2-byte type splits a row into
     as many blocks as float32's, but never loads float4 (so its chunk need
     not be a multiple of 4)."""
     x = torch.zeros((3, 8))
     for dt in (torch.float32, torch.bfloat16, torch.float16):
         ops.check_inputs(x.to(dt), x.to(dt), 1.0)
-    for bad in ((x.long(), x.long()), (x.double(), x.double()), (x.bfloat16(), x),
-                (x.t().contiguous().t(), x)):
+    for bad in ((x.long(), x.long()), (x.double(), x.double()), (x, x.bfloat16()),
+                (x.bfloat16(), x.half()), (x.t().contiguous().t(), x)):
         with pytest.raises(ValueError, match="bfloat16 or float16"):
             ops.check_inputs(*bad, 1.0)
     ops.check_inputs(x.half(), None, 0.0)  # sigma 0: the noise is not read
@@ -171,3 +172,36 @@ def test_kernel_inputs_take_the_half_types_and_refuse_others():
     assert bf["chunk"] * bf["blocks_per_row"] >= 802816 > bf["chunk"] * (bf["blocks_per_row"] - 1)
     with pytest.raises(ValueError, match="no plan"):
         ops.release_plan(8, 100, 132, True, "float64")
+
+
+@pytest.mark.parametrize("half", sorted(HALVES))
+@pytest.mark.parametrize("shape,clip,sigma", [CASES[1], CASES[4]])
+def test_half_x_takes_float32_noise_as_the_reference(half, shape, clip, sigma):
+    """The reference's guard draws its noise in float32 beside a bf16 cut,
+    and its kernel reads it as float32 (``kernel.py:35-36``): the plain
+    version and the wrapper take that pair (the kernel's input checks pass
+    it; the CUDA kernel itself is held by ``tests/test_torch_gpu.py`` and
+    ``chip_smoke.py``) and agree with the Pallas kernel in interpret mode
+    within one ulp of x's type. Rounding the noise to x's type first would
+    be another release (other bits). Every other mix is refused: a 2-byte noise beside float32 x or
+    beside the other 2-byte type, float64 noise, a strided noise, noise on
+    another device."""
+    tdt, jdt, mant = HALVES[half]
+    x32, nz = (torch.from_numpy(a) for a in _inputs(5, shape))
+    x = x32.to(tdt)
+    want = dp_release_pallas(jnp.asarray(x.float().numpy()).astype(jdt), jnp.asarray(nz.numpy()),
+                             clip_norm=clip, sigma=sigma, interpret=True)
+    assert want.dtype == jdt
+    ops.check_inputs(x, nz, sigma)
+    for got in (dp_release_ref(x, nz, clip_norm=clip, sigma=sigma),
+                ops.dp_release_with_noise(x, nz, clip_norm=clip, sigma=sigma, use_kernel=True)):
+        assert got.dtype == tdt
+        assert_within_one_ulp(got, np.asarray(want.astype(jnp.float32)), mant)
+    rounded = dp_release_ref(x, nz.to(tdt), clip_norm=clip, sigma=sigma)
+    assert not torch.equal(rounded, dp_release_ref(x, nz, clip_norm=clip, sigma=sigma))
+    other = torch.float16 if tdt == torch.bfloat16 else torch.bfloat16
+    for bad in ((x32, nz.to(tdt)), (x, nz.to(other)), (x, nz.double()),
+                (x, nz.transpose(1, 2)),  # dims 1 and 2 are equal here: a strided view
+                (x, nz.to("meta"))):
+        with pytest.raises(ValueError, match="x's type or float32"):
+            ops.check_inputs(*bad, sigma)

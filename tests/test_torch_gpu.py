@@ -640,12 +640,35 @@ def test_serving_kernels_take_the_half_types(cuda, dtype, case):
     assert _within_one_ulp(got, want, dtype)
 
 
+# the reference's guard draws float32 noise beside a bf16 cut and its kernel
+# reads it as float32: the half types beside float32 noise, one block a row
+# and a split row (llama3.2-1b's LM cut, k = 44), against the plain version
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape", [(64, 32, 32, 16), (3, 512, 2048)])
+def test_dp_release_half_x_with_float32_noise(cuda, dtype, shape):
+    """Within one ulp of the type beyond TOL of the plain version (which
+    adds sigma * noise in float32 and rounds once), the same bits on a
+    relaunch, and other bits than the release of the noise rounded to x's
+    type first."""
+    g = torch.Generator().manual_seed(8)
+    x, nz = _randn(g, *shape).to(dtype), _randn(g, *shape)
+    plan = dp_ops.plan_for(x, nz, 9.7)
+    assert not plan["vec4"] and (plan["blocks_per_row"] > 1) == (shape[0] == 3)
+    before = dp_ops.launches
+    got, again = (dp_ops.dp_release_forward(x, nz, 1.0, 9.7) for _ in range(2))
+    torch.cuda.synchronize()
+    assert dp_ops.launches == before + 2 * plan["launches"]
+    assert got.dtype == dtype and torch.equal(got, again)
+    assert _within_one_ulp(got, dp_release_ref(x, nz, clip_norm=1.0, sigma=9.7), dtype)
+    assert not torch.equal(got, dp_ops.dp_release_forward(x, nz.to(dtype), 1.0, 9.7))
+
+
 def test_half_kernels_refuse_mixed_types(cuda):
     x = torch.randn(2, 8, 8, 1, device=cuda).bfloat16()
     w, b = torch.randn(3, 3, 1, 4, device=cuda), torch.zeros(4, device=cuda)
     with pytest.raises(ValueError, match="one type"):
         pc_ops.privacy_conv_forward(x, w, b, None, 0.0)
-    with pytest.raises(ValueError, match="one type"):
+    with pytest.raises(ValueError, match="x's type or float32"):
         dp_ops.dp_release_forward(x, x.half(), 1.0, 1.0)
     with pytest.raises(ValueError, match="float32\\)"):  # the banked launch is float32 alone
         pc_ops.privacy_conv_banked_forward(x[None], w[None].bfloat16(), b[None].bfloat16(),

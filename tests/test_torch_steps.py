@@ -7,16 +7,17 @@ Both sides run with no devices: the reference's ``steps_lib.build`` on a
 ``jax.sharding.AbstractMesh`` (no compile), the port's ``steps.build`` on
 the shape-only ``ShapeMesh``, its inputs fake tensors. Specs must be equal
 leaf for leaf (by path); the bytes a rank holds equal the sum over leaves
-of ``NamedSharding(...).shard_shape`` times the item size, train compared
-at float32 on both sides (the port trains in float32; the reference's
-state takes the config's dtype).
+of ``NamedSharding(...).shard_shape`` times the item size, and every
+input leaf's dtype equals the reference's: train at the config's dtype on
+both sides (a bfloat16 config's state holds bf16 matrices beside float32
+norms and float32 moments).
 """
 import math
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.sharding import AbstractMesh, NamedSharding
 
 from repro.configs import SHAPES as J_SHAPES
@@ -54,6 +55,26 @@ def port_specs(tree, prefix=""):
             out.update(port_specs(v, f"{prefix}/{i}" if prefix else str(i)))
         return out
     return {}
+
+
+def port_dtypes(tree, prefix=""):
+    """``{path: dtype name}`` of a port input tree's tensor leaves."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: str(tree.dtype).removeprefix("torch.")}
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree) if isinstance(tree, (list, tuple)) else ())
+    out = {}
+    for k, v in items:
+        out.update(port_dtypes(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def jax_dtypes(args, prefix=""):
+    out = {}
+    for path, a in jax.tree_util.tree_flatten_with_path(args)[0]:
+        key = "/".join(_key(p) for p in path)
+        out[f"{prefix}/{key}" if prefix and key else (prefix or key)] = np.dtype(a.dtype).name
+    return out
 
 
 def _key(p):
@@ -107,15 +128,15 @@ def test_placements_and_rank_bytes_equal_the_reference(arch, shape, grid, zero1)
         want = jax_specs(ref.in_shardings[i], name)
         assert got == want, (name, {k: (got.get(k), want.get(k)) for k in set(got) | set(want)
                                     if got.get(k) != want.get(k)})
+        if name != "pos":  # the decode position: an int32 scalar on both sides
+            got, want = port_dtypes(low.args[i], name), jax_dtypes(ref.args[i], name)
+            assert got == want, (name, {k: (got.get(k), want.get(k))
+                                        for k in set(got) | set(want) if got.get(k) != want.get(k)})
     # the bytes a rank holds of the same inputs
     port_bytes = steps.rank_bytes(low, mesh, n_args=len(names))
     ref_bytes = 0
     for i in range(len(names)):
         args, shard = ref.args[i], ref.in_shardings[i]
-        if kind == "train" and i == 0:  # the state at float32, as the port trains
-            args = jax.tree.map(lambda a: jax.ShapeDtypeStruct(
-                a.shape, jnp.float32 if jnp.issubdtype(a.dtype, jnp.floating) else a.dtype),
-                args)
         for a, s in zip(jax.tree.leaves(args), jax.tree.leaves(
                 shard, is_leaf=lambda x: isinstance(x, NamedSharding))):
             ref_bytes += math.prod(s.shard_shape(a.shape)) * np.dtype(a.dtype).itemsize

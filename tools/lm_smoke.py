@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """The LM phases of ``chip_smoke.py`` alone, for iterating on the LM paths.
 
-    python3 tools/lm_smoke.py [--paths lm moe ssm hybrid] [--cpu-seq N] [--half]
+    python3 tools/lm_smoke.py [--paths lm lm16 moe ssm hybrid] [--cpu-seq N] [--half]
 
 Builds the kernels, checks ``dp_release`` at the cut of each chosen path
 (``chip_smoke.check_releases`` on ``<path>_cut`` with and without noise),
 then runs ``chip_smoke.lm_phases`` for each of ``lm`` (llama3.2-1b),
+``lm16`` (llama3.2-1b trained in its config's bfloat16, beside ``lm``'s
+timing where both run),
 ``moe`` (granite-moe-1b-a400m) and ``ssm`` (falcon-mamba-7b at 12 layers)
 chosen, and ``chip_smoke.hybrid_phase`` for ``hybrid`` (jamba's layer
 pattern at reduced widths), after the card's name and power limit;
@@ -33,7 +35,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--paths", nargs="+", default=["lm", "moe", "ssm", "hybrid"],
+    ap.add_argument("--paths", nargs="+", default=["lm", "lm16", "moe", "ssm", "hybrid"],
                     choices=[*cs.LM_SPECS, "hybrid"])
     ap.add_argument("--cpu-seq", type=int, default=None)
     ap.add_argument("--half", action="store_true")
@@ -55,9 +57,12 @@ def main() -> None:
     release_inputs, _ = cs.check_releases(gen, dev, cases, {})
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with tempfile.TemporaryDirectory(dir=os.path.join(HERE, "build")) as tmp:
+        paths = {}
         for prefix in args.paths:
             if prefix in cs.LM_SPECS:
-                cs.lm_phases(dev, smi, release_inputs, tmp, cs.LM_SPECS[prefix])
+                beside = paths["lm"]["timed"] if prefix == "lm16" and "lm" in paths else None
+                paths[prefix] = cs.lm_phases(dev, smi, release_inputs, tmp,
+                                             cs.LM_SPECS[prefix], beside)
     if "hybrid" in args.paths:
         cs.hybrid_phase(dev, smi)
     if args.half:
