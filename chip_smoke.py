@@ -53,8 +53,14 @@ card and the CPU, every trunk step retaken from its state, a bit-for-bit
 restore, the CPU run's accounting); under a chaos ``FaultPlan`` equal to
 the CPU run, and a quorum halt (``queue_faults``); with client threads
 (``queue_threaded``: conservation, and a client's exception surfacing as
-``ClientLoopError``); and times the banked launch and the four engine and
-production pairs (``queue_time``).
+``ClientLoopError``); with client threads under a mesh, the arrival order
+decided on the leader rank (``queue_threaded_mesh``: both engines on a 1x1
+grid, a one-rank NCCL group, their pops replayed with no mesh bit for bit;
+protocol-async on ``make_split_mesh(1, 2)``, two gloo ranks of this card
+with the trunk tensor-parallel, the ranks bit-equal and each trunk step
+retaken with no mesh from its state: the loss within 1e-5, the gradient
+and the weights in relative L2); and times the banked launch and the four
+engine and production pairs (``queue_time``).
 
 Then it drives FedAvg, the paper's Table 5 baseline, through
 ``SplitSession(engine="fedavg")``: three hospitals each train the full
@@ -229,9 +235,11 @@ from repro_torch.core.distributed import (  # noqa: E402
 )
 from repro_torch.core.session import LLMSplitEngine  # noqa: E402
 from repro_torch.core.protocol import (  # noqa: E402
+    SplitServer,
     _plan_round_robin_cycle,
     make_fleet_release_fwd,
 )
+from repro_torch.core.queue import FeatureQueue  # noqa: E402
 from repro_torch.core.trainer import (  # noqa: E402
     SamplePlan,
     device_put_shards,
@@ -1497,6 +1505,237 @@ def queue_threaded(dev, smi: str) -> dict:
           "client_error": surfaced})
     return {"privacy_conv": ran["privacy_conv"]["launches"],
             "dp_release": ran["dp_release"]["launches"]}
+
+
+QTM_CHUNK, QTM_STEPS = 4, 2 * QUEUE_STEPS  # queue_threaded's fleet chunk and steps
+
+
+def qtm_session(engine, dev, mesh):
+    """queue_threaded's session (COVID-CT at its published width, both
+    kernels, client threads, fleet chunks of 4, pop timeout 0.05 s) on
+    ``mesh``."""
+    return queue_session(engine, dev, threaded=True, fleet_chunk=QTM_CHUNK, pop_timeout=0.05,
+                         mesh=mesh)
+
+
+def qtm_fit(sess) -> tuple:
+    """One threaded fit of QTM_STEPS server steps, its launches read
+    around it: (kernel counts, wall s)."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sess.fit(queue_shards(), epochs=1, steps_per_epoch=QTM_STEPS)
+    torch.cuda.synchronize()
+    return kernel_counts(), time.perf_counter() - t0
+
+
+def qtm_checks(sess, ran, leader: bool) -> dict:
+    """queue_threaded's conservation gates on the leader (the queue lives
+    there); a follower produced nothing, so it launched no client-side
+    kernel. Launches equal the fleet's dispatches on the leader."""
+    st, fs, eng = sess.engine.stats, sess.fault_stats, sess.engine
+    rel = fs["releases_per_client"]
+    dispatches = eng.fleet.dispatches
+    launched = (ran["privacy_conv"]["launches"], ran["dp_release"]["launches"],
+                sum(p["calls"] for p in ran["dp_release"]["plans"]))
+    checks = {
+        "popped_is_steps": (st["popped"] == QTM_STEPS == int(sess.state["step"])
+                            == len(eng.pops)),
+        "releases_are_chunks": sum(rel) == QTM_CHUNK * dispatches,
+        "budget_follows_worst_client": sess.privacy_report()["releases"] == max(rel),
+        "losses_finite": bool(np.isfinite(eng.losses).all()),
+    }
+    if leader:
+        checks["pushed_minus_popped_is_queue_length"] = (st["pushed"] - st["popped"]
+                                                         == len(eng.queue))
+        checks["launches_are_dispatches"] = (launched[0] == dispatches == launched[2]
+                                             and dispatches > 0)
+    else:
+        checks["follower_launched_nothing"] = launched == (0, 0, 0)
+    if not all(checks.values()):
+        raise AssertionError(f"queue_threaded_mesh: {checks}, stats {st}, releases {rel}, "
+                             f"dispatches {dispatches}, launches {ran}")
+    return checks
+
+
+def qtm_items(dev, pops) -> tuple:
+    """The items of the leader's pops ``(client_id, release)`` of one
+    threaded fit from the seed's state, made again with no mesh on
+    ``dev``: each client's releases by a no-mesh fleet producer in the
+    leader's chunks (4 releases of one client a dispatch). Returns the
+    no-mesh session and the items ``(features, labels)`` in pop order."""
+    ref = queue_session("protocol-async", dev, fleet_chunk=QTM_CHUNK)
+    eng = ref.engine
+    clients = eng._make_clients(ref.native_state, queue_shards())
+    fleet = eng._make_fleet(clients)
+    made = {c: [] for c in range(len(clients))}
+    items = []
+    for cid, release in pops:
+        while len(made[cid]) < release:
+            made[cid].extend(fleet.produce_for(clients[cid], QTM_CHUNK))
+        _, f, y = made[cid][release - 1]
+        items.append((f.tensor(), y))
+    return ref, items
+
+
+def qtm_replay(dev, pops) -> SplitServer:
+    """The leader's pops replayed with no mesh: their items
+    (:func:`qtm_items`), each one step of the no-mesh server step, in the
+    pops' order, from the seed's state."""
+    ref, items = qtm_items(dev, pops)
+    eng, state = ref.engine, ref.native_state
+    server = SplitServer(eng.adapter, state["server"], eng.opt, FeatureQueue(),
+                         clip_norm=eng.tc.grad_clip, opt_state=state["opt"], step_count=0,
+                         step_fn=make_server_step(eng.adapter, eng.opt, eng.tc.grad_clip),
+                         device=dev)
+    for (cid, _), (f, y) in zip(pops, items):
+        server.consume(cid, f, y)
+    return server
+
+
+def qtm_retake(dev, pops, calls) -> dict:
+    """Each recorded trunk step of the leader (a :class:`Recorder`'s
+    calls) against the no-mesh replay of its pop: the item made again is
+    the step's input bit for bit, and the no-mesh step retaken from the
+    step's own state gives its loss within TP_LOSS_RTOL, its clipped
+    gradient (AdamW's first moment over (1 - b1)) within GRAD_TOL relative
+    L2, as ``queue_gate``'s retaken steps, and its weights within
+    TRAIN_TOL's rtol relative L2. Retaking each step from its state keeps
+    AdamW from carrying the trunk's float32 reassociation from step to
+    step. The weights are not held element by element: where a gradient
+    is float32 noise (0 on one side, a few 1e-9 on the other, its second
+    moment near 1e-20), AdamW divides it by the root of that moment and
+    moves the weight by up to the order of the learning rate, 1e-3, which
+    no element-wise tolerance below it can hold; the element-wise largest
+    difference is printed with that weight's gradient on both sides and
+    its second moment."""
+    ref, items = qtm_items(dev, pops)
+    step_fn = make_server_step(ref.adapter, ref.opt, ref.config.grad_clip)
+    if len(calls) != len(items):
+        raise AssertionError(f"queue_threaded_mesh: {len(calls)} trunk steps, {len(items)} pops")
+    flat = lambda t: torch.cat([a.reshape(-1) for a in tree_leaves(t)])  # noqa: E731
+    worst = {"loss_max_rel_err": 0.0, "grad_max_rel_l2": 0.0, "weights_max_rel_l2": 0.0,
+             "weights_max_abs_err": 0.0, "weights_over_train_atol": 0}
+    at_worst = {}
+    for k, ((params, opt_state, step, f, y), (new_params, new_opt, loss)) in enumerate(calls):
+        f0, y0 = items[k]
+        if not (torch.equal(f, f0) and torch.equal(y.cpu(), torch.as_tensor(y0))):
+            raise AssertionError(f"queue_threaded_mesh: pop {k} {pops[k]} is not its release")
+        params2, opt2, loss2 = step_fn(params, opt_state, step, f, y)
+        mu0 = flat(opt_state["mu"])
+        g, g2 = ((flat(o["mu"]) - ADAM_B1 * mu0) / (1 - ADAM_B1) for o in (new_opt, opt2))
+        w, w2 = flat(new_params), flat(params2)
+        dw = (w2 - w).abs()
+        i = int(dw.argmax())
+        errs = {"loss_max_rel_err": abs(float(loss2) / float(loss) - 1.0),
+                "grad_max_rel_l2": float((g2 - g).norm() / g.norm()),
+                "weights_max_rel_l2": float((w2 - w).norm() / w.norm()),
+                "weights_max_abs_err": float(dw[i]),
+                "weights_over_train_atol": int((dw > TRAIN_TOL["atol"]).sum())}
+        if not (errs["loss_max_rel_err"] <= TP_LOSS_RTOL and errs["grad_max_rel_l2"] <= GRAD_TOL
+                and errs["weights_max_rel_l2"] <= TRAIN_TOL["rtol"]):
+            raise AssertionError(f"queue_threaded_mesh: trunk step {k} against the no-mesh "
+                                 f"step: {errs}")
+        if errs["weights_max_abs_err"] >= worst["weights_max_abs_err"]:
+            at_worst = {"step": k, "grad_mesh": float(g[i]), "grad_no_mesh": float(g2[i]),
+                        "second_moment": float(flat(new_opt["nu"])[i])}
+        worst = {key: max(v, errs[key]) for key, v in worst.items()}
+    return {**worst, "worst_weight": at_worst}
+
+
+def queue_threaded_mesh(dev, smi: str, tmp: str) -> dict:
+    """``queue_threaded_mesh``: queue_threaded's session under a mesh, the
+    arrival order decided on the leader rank (``protocol.LeaderRelay``),
+    cuDNN deterministic. (a) ``make_split_mesh(1, 1)``, a one-rank NCCL
+    group, for protocol-async and fused-queue: queue_threaded's
+    conservation gates, the launches of both kernels equal to the fleet's
+    dispatches, and the leader's pops replayed with no mesh give the
+    trunk, its moments and the losses bit for bit. (b)
+    ``make_split_mesh(1, 2)``, two gloo ranks of this card (``--rank``),
+    protocol-async, the trunk tensor-parallel: the two ranks' trunk,
+    moments, losses, stats and fault_stats equal, the follower launches no
+    client-side kernel, and on the leader each trunk step against the
+    no-mesh replay of its pop (:func:`qtm_retake`): the losses within
+    TP_LOSS_RTOL, the gradient within GRAD_TOL and the weights within
+    TRAIN_TOL's rtol, each in relative L2. Returns each run's launches."""
+    torch.backends.cudnn.deterministic = True
+    t_phase = time.perf_counter()
+    grid = make_split_mesh(1, 1, n_clients=3)
+    # a warm-up fit first: the group's first collective sets up its NCCL
+    # communicator, which the timed fits should not pay for
+    qtm_session("protocol-async", dev, grid).fit(queue_shards(), epochs=1, steps_per_epoch=4)
+    out = {"1x1": {}}
+    for engine in ("protocol-async", "fused-queue"):
+        sess = qtm_session(engine, dev, grid)
+        ran, wall = qtm_fit(sess)
+        checks = qtm_checks(sess, ran, leader=True)
+        replayed = qtm_replay(dev, sess.engine.pops)
+        state = sess.state
+        bits = (replayed.losses == sess.engine.losses
+                and states_equal(replayed.params, state["server"])
+                and states_equal(replayed.opt_state, state["opt"]))
+        if not bits:
+            raise AssertionError(f"queue_threaded_mesh 1x1 {engine}: the no-mesh replay of the "
+                                 f"leader's pops differs: {replayed.losses} vs "
+                                 f"{sess.engine.losses}")
+        launches = {k: v["launches"] for k, v in ran.items()}
+        out["1x1"][engine] = launches
+        emit({"phase": "queue_threaded_mesh", "card": smi, "grid": "make_split_mesh(1, 1)",
+              "backend": torch.distributed.get_backend(), "engine": engine,
+              "fleet_chunk": QTM_CHUNK, "steps": QTM_STEPS, "wall_s": wall,
+              "server_steps_per_s": QTM_STEPS / wall, "launches": launches,
+              "dispatches": sess.engine.fleet.dispatches, "pops": sess.engine.pops,
+              "stats": {k: v for k, v in sess.engine.stats.items() if k != "privacy"},
+              "releases_per_client": sess.fault_stats["releases_per_client"], **checks,
+              "replay_bit_identical": True})
+    release_meshes()
+    ranks = spawn_ranks("queue_tm", tmp)
+    lead, follow = ranks
+    states = [torch.load(os.path.join(tmp, f"queue_tm_r{r}.pt")) for r in range(2)]
+    same = (states_equal(states[0], states[1]) and lead["losses"] == follow["losses"]
+            and all(lead[k] == follow[k] for k in ("pops", "stats", "fault_stats", "privacy")))
+    if not same:
+        raise AssertionError(f"queue_threaded_mesh 1x2: the ranks part: {lead} vs {follow}")
+    out["1x2"] = [r["launches"] for r in ranks]
+    torch.backends.cudnn.deterministic = False
+    emit({"phase": "queue_threaded_mesh", "card": smi, "grid": "make_split_mesh(1, 2)",
+          "backend": "gloo", "engine": "protocol-async", "ranks": 2,
+          "fleet_chunk": QTM_CHUNK, "steps": QTM_STEPS,
+          "wall_s": [r["wall_s"] for r in ranks],
+          "server_steps_per_s": [QTM_STEPS / r["wall_s"] for r in ranks],
+          "launches": out["1x2"], "dispatches": lead["dispatches"],
+          "checks": [r["checks"] for r in ranks], "ranks_bit_identical": True,
+          "steps_retaken": QTM_STEPS, **{f"replay_{k}": v for k, v in lead["retake"].items()},
+          "loss_rtol": TP_LOSS_RTOL, "grad_tol": GRAD_TOL,
+          "weights_rel_l2_tol": TRAIN_TOL["rtol"]})
+    emit({"phase": "queue_threaded_mesh_wall", "card": smi,
+          "wall_s": time.perf_counter() - t_phase})
+    return out
+
+
+def queue_threaded_mesh_rank(dev, rank: int, tmp: str) -> dict:
+    """One rank of ``queue_threaded_mesh`` (b): protocol-async threaded on
+    ``make_split_mesh(1, 2)``; rank 0 leads. Its trunk and moments go to
+    ``queue_tm_r<rank>.pt``."""
+    torch.backends.cudnn.deterministic = True
+    grid = make_split_mesh(1, 2, n_clients=3)
+    # a warm-up fit first: the process's first convolutions pick their
+    # algorithms, which the timed fit should not pay for
+    qtm_session("protocol-async", dev, grid).fit(queue_shards(), epochs=1, steps_per_epoch=4)
+    sess = qtm_session("protocol-async", dev, grid)
+    sess.engine._server_step = Recorder(sess.engine._server_step)
+    ran, wall = qtm_fit(sess)
+    checks = qtm_checks(sess, ran, leader=rank == 0)
+    retake = (qtm_retake(dev, sess.engine.pops, sess.engine._server_step.calls)
+              if rank == 0 else None)
+    state = sess.state
+    torch.save({k: tree_map(lambda a: a.cpu(), state[k]) for k in ("server", "opt")},
+               os.path.join(tmp, f"queue_tm_r{rank}.pt"))
+    return {"rank": rank, "pops": sess.engine.pops, "losses": sess.engine.losses,
+            "stats": sess.engine.stats, "fault_stats": sess.fault_stats,
+            "privacy": sess.privacy_report(), "dispatches": sess.engine.fleet.dispatches,
+            "launches": {k: v["launches"] for k, v in ran.items()}, "checks": checks,
+            "retake": retake, "wall_s": wall}
 
 
 def queue_time(dev, smi: str, inputs: dict, cycle_release: tuple) -> dict:
@@ -3574,7 +3813,8 @@ def rank_main(job: str, rank: int, world: int, tmp: str, port: int) -> None:
     store = dist.TCPStore("127.0.0.1", port, world, is_master=rank == 0)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     dev = torch.device(RANK_DEVICE)
-    out = {"lm_tp": lm_tp_rank, "moe_dp": moe_dp_rank}[job](dev, rank, tmp)
+    out = {"lm_tp": lm_tp_rank, "moe_dp": moe_dp_rank,
+           "queue_tm": queue_threaded_mesh_rank}[job](dev, rank, tmp)
     with open(os.path.join(tmp, f"{job}_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.barrier()
@@ -3825,6 +4065,8 @@ def main() -> None:
         queue = queue_covid(dev, smi, tmp)
     queue_fault_launches = queue_faults(dev, smi)
     queue_thread_launches = queue_threaded(dev, smi)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        queue_mesh_launches = queue_threaded_mesh(dev, smi, tmp)
     queue_timed = queue_time(dev, smi, banked_inputs, release_inputs["fleet_cycle"])
 
     # ==== FedAvg and the inversion audit at COVID-CT width
@@ -4038,6 +4280,12 @@ def main() -> None:
          "training_case": training_ms[name]["case"] if name in training_ms else None,
          "training_ms": training_ms[name]["ms"] if name in training_ms else None,
          "launches_queue": queue_launches.get(name),
+         # the threaded drive under a mesh: each engine's fit on the 1x1
+         # grid, and each rank's on the (1, 2) grid (the follower's 0)
+         "launches_threaded_mesh": (
+             {"1x1": {e: n[name] for e, n in queue_mesh_launches["1x1"].items()},
+              "1x2": [r[name] for r in queue_mesh_launches["1x2"]]}
+             if name in ("privacy_conv", "dp_release") else None),
          "queue_case": queue_case[name][0] if name in queue_case else None,
          "queue_max_abs_err": errs[queue_case[name][0]] if name in queue_case else None,
          **({f"queue_{k}": queue_case[name][1][k]

@@ -62,6 +62,21 @@ class ClientLoopError(RuntimeError):
         self.cause = cause
 
 
+class RemoteClientError(RuntimeError):
+    """A client thread's exception as another rank of a mesh sees it: the
+    threaded drive runs the client threads on the leader rank alone
+    (``protocol.LeaderRelay``), which sends the exception's ``repr``; this
+    stands for it in every other rank's ``ClientLoopError``, and its
+    ``repr`` is the leader's, so ``fault_stats`` agree across the ranks."""
+
+    def __init__(self, leader_repr: str):
+        super().__init__(leader_repr)
+        self.leader_repr = leader_repr
+
+    def __repr__(self) -> str:
+        return self.leader_repr
+
+
 def _quanta_from_shares(shares: Sequence[float]) -> List[int]:
     """The round-robin drive's share->quanta formula (one source of truth:
     ``drive_protocol`` and the fault path must agree bit-for-bit)."""

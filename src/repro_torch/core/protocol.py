@@ -33,11 +33,14 @@ order is deterministic: each rank holds every client's sampling RNG and
 noise stream and draws every item, runs the privacy layers of its own
 clients only, and the releases are gathered over the client axis, so every
 rank's queue sees every item. The trunk steps tensor-parallel over a model
-axis above 1 (``trainer.make_server_step``).
+axis above 1 (``trainer.make_server_step``). The threaded drive under a
+mesh has one arrival order, decided on the leader rank, which every rank
+follows (:class:`LeaderRelay`).
 """
 from __future__ import annotations
 
 import collections
+import json
 import threading
 import time
 import warnings
@@ -45,11 +48,12 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.common.device import resolve_device, seeded_generator
 from repro_torch.common.tree import tree_leaves
 from repro_torch.core.adapters import SplitAdapter, fleet_release_forward
-from repro_torch.core.faults import ClientLoopError, FaultRun
+from repro_torch.core.faults import ClientLoopError, FaultRun, RemoteClientError
 from repro_torch.core.queue import FeatureQueue, FeatureSlice, as_tensor
 from repro_torch.core.trainer import CLIENT_AXIS, make_server_step, stack_pytrees
 from repro_torch.launch.mesh import axis_names
@@ -310,7 +314,10 @@ class SplitServer:
         item = _pop_with_backoff(self.queue, timeout, retries, backoff)
         if item is None:
             return None
-        _cid, features, labels = item
+        return self.consume(*item)
+
+    def consume(self, client_id, features, labels) -> float:
+        """One trunk update on one queue item."""
         self.params, self.opt_state, loss = self._step(
             self.params, self.opt_state, self.step_count,
             as_tensor(features, self.device), torch.as_tensor(labels, device=self.device))
@@ -338,9 +345,12 @@ class BankedConsumer:
         item = _pop_with_backoff(self.queue, timeout, retries, backoff)
         if item is None:
             return None
-        self.bank.accept(*item)
+        return self.consume(*item)
+
+    def consume(self, client_id, features, labels) -> None:
+        """Bank one queue item; no loss yet: it comes from the replay."""
+        self.bank.accept(client_id, features, labels)
         self.step_count += 1
-        return None  # no loss yet: it comes from the replay
 
 
 def _pop_with_backoff(queue: FeatureQueue, timeout: float, retries: int,
@@ -358,6 +368,127 @@ def _pop_with_backoff(queue: FeatureQueue, timeout: float, retries: int,
         queue.note_retry()
         item = queue.pop(timeout=wait)
     return item
+
+
+# the threaded mesh drive's header kinds: a pop that found nothing, an item,
+# the end of the drive
+_EMPTY, _ITEM, _STOP = 0, 1, 2
+
+
+class LeaderRelay:
+    """The threaded drive across the ranks of a mesh: one arrival order,
+    decided on the leader (global rank 0; a mesh covers the world), which
+    every rank follows. Every collective runs on the main thread, and every
+    rank issues the same ones in the same order.
+
+    The leader alone runs the client threads, the queue, the fault run, the
+    pops with their timeouts, retries and back-off, and the quorum halt.
+    Its production runs without the client axis (the queue engines hold
+    every bank whole on every rank), so no thread needs a collective; the
+    client axis then places the banks but does not split production, and
+    no value changes: a release is a function of (client, release number,
+    noise) alone. After each pop attempt the leader broadcasts a header
+    ``[kind, client_id, release]`` (nothing popped, an item, or the end)
+    and, for an item, its features and labels, which every rank consumes
+    (``SplitServer.consume``: the trunk step, tensor-parallel over a model
+    axis above 1; ``BankedConsumer.consume``: a bank slot). The other ranks
+    run no threads. At the end of a drive the leader broadcasts the
+    accounting, which the other ranks adopt: the queue's counters, each
+    client's releases, the fleet's dispatches, the fault run's counters
+    and halt, and a client thread's error, which every rank then raises as
+    ``ClientLoopError`` (a ``RemoteClientError`` with the leader's ``repr``
+    as the cause). A follower's queue carries the leader's counters, not
+    its items, and its clients produce nothing; each run builds the
+    clients anew from the server step, which every rank shares, so a later
+    fit starts every rank's sampling and noise streams where the leader's
+    stand. ``pops`` is the run's arrival order as ``(client_id,
+    release)``, on every rank.
+
+    Queue items cross the leader's queue as ``(client_id, (features,
+    release), labels)``."""
+
+    def __init__(self, device):
+        self.device = device
+        self.leader = dist.get_rank() == 0
+        self.pops: List[Tuple[int, int]] = []
+
+    def _bcast(self, t: torch.Tensor) -> torch.Tensor:
+        dist.broadcast(t, src=0)
+        return t
+
+    def _header(self, kind: int = 0, client_id: int = -1, release: int = 0) -> List[int]:
+        return self._bcast(torch.tensor([kind, client_id, release], dtype=torch.int64,
+                                        device=self.device)).tolist()
+
+    def lead_one(self, server, timeout: float, retries: int, backoff: float) -> None:
+        """Leader: one pop attempt, broadcast, and the item consumed."""
+        item = _pop_with_backoff(server.queue, timeout, retries, backoff)
+        if item is None:
+            self._header(_EMPTY)
+            return
+        cid, (features, release), labels = item
+        self._header(_ITEM, cid, release)
+        self._bcast(as_tensor(features, self.device).contiguous())
+        self._bcast(torch.as_tensor(np.asarray(labels), device=self.device))
+        self.pops.append((cid, release))
+        server.consume(cid, features, labels)
+
+    def follow(self, server, clients: Sequence[SplitClient], queue: FeatureQueue,
+               fleet: Optional[FleetProducer], faults: Optional[FaultRun]) -> None:
+        """Another rank: consume the leader's items until the end of its
+        drive, then adopt its accounting (raising its client error)."""
+        c0 = clients[0]
+        x_shape = (c0.batch,) + tuple(c0.x.shape[1:])
+        f_shape, f_dtype = tuple(c0.adapter.feature_shape(x_shape)), _dtype_of(c0.params)
+        y_shape = (c0.batch,) + tuple(c0.y.shape[1:])
+        y_dtype = torch.as_tensor(np.asarray(c0.y[:1])).dtype
+        while True:
+            kind, cid, release = self._header()
+            if kind == _STOP:
+                break
+            if kind == _ITEM:
+                f = self._bcast(torch.empty(f_shape, dtype=f_dtype, device=self.device))
+                y = self._bcast(torch.empty(y_shape, dtype=y_dtype, device=self.device))
+                self.pops.append((cid, release))
+                server.consume(cid, f, y.cpu().numpy())
+        acc = self._json()
+        for k, v in acc["queue"].items():
+            setattr(queue, k, v)
+        for c, n in zip(clients, acc["releases"]):
+            c.releases = n
+        if fleet is not None:
+            fleet.dispatches = acc["dispatches"]
+        if faults is not None:
+            for k, v in acc["faults"].items():
+                setattr(faults, k, v)
+        if acc["error"] is not None:
+            cid, cause = acc["error"]
+            err = RemoteClientError(cause)
+            raise ClientLoopError(cid, err) from err
+
+    def finish(self, clients: Sequence[SplitClient], queue: FeatureQueue,
+               fleet: Optional[FleetProducer], faults: Optional[FaultRun],
+               error: Optional[Tuple[int, BaseException]]) -> None:
+        """Leader: end the drive on every rank and send the accounting."""
+        self._header(_STOP)
+        fault_counters = None if faults is None else {
+            k: getattr(faults, k) for k in ("transit_dropped", "duplicated", "down_cycles",
+                                            "halted", "halt_reason")}
+        self._json({"queue": queue.stats(), "releases": [int(c.releases) for c in clients],
+                    "dispatches": None if fleet is None else fleet.dispatches,
+                    "faults": fault_counters,
+                    "error": None if error is None else [error[0], repr(error[1])]})
+
+    def _json(self, obj=None):
+        """``obj`` from the leader, as JSON, on every rank."""
+        if self.leader:
+            data = torch.frombuffer(bytearray(json.dumps(obj).encode()), dtype=torch.uint8)
+            self._bcast(torch.tensor([data.numel()], dtype=torch.int64, device=self.device))
+            self._bcast(data.to(self.device))
+            return obj
+        n = int(self._bcast(torch.empty(1, dtype=torch.int64, device=self.device)))
+        data = self._bcast(torch.empty(n, dtype=torch.uint8, device=self.device))
+        return json.loads(data.cpu().numpy().tobytes().decode())
 
 
 def _plan_round_robin_cycle(
@@ -429,6 +560,7 @@ def drive_protocol(
     pop_timeout: float = 1.0,
     pop_retries: int = 0,
     pop_backoff: float = 2.0,
+    relay: Optional[LeaderRelay] = None,
 ) -> Dict[str, Any]:
     """Drive prebuilt clients and a consumer until ``server.step_count``
     reaches ``total_server_steps`` (an ABSOLUTE target, so repeated calls
@@ -455,11 +587,20 @@ def drive_protocol(
     Kernel launches from client threads go to the one current (default)
     stream; tensors cross threads through the queue.
 
+    ``relay`` (a :class:`LeaderRelay`; the threaded drive under a mesh): the
+    leader rank runs the threaded drive and relays each pop to the other
+    ranks, which follow it without threads (the clients' production must
+    then issue no collective: no client axis on them or the fleet).
+
     Returns ``{"dropped", "drained", "halted"}``: produced batches never
     enqueued; consumptions forced by a full queue between pushes (0 in
     threaded mode); whether the quorum policy stopped the drive.
     """
     dropped = drained = 0
+    if threaded and relay is not None and not relay.leader:
+        relay.follow(server, clients, queue, fleet, faults)
+        return {"dropped": 0, "drained": 0,
+                "halted": faults.halted if faults is not None else False}
     if threaded:
         stop = threading.Event()
         errors: List[Tuple[int, BaseException]] = []
@@ -475,16 +616,21 @@ def drive_protocol(
                         time.sleep(0.002)  # (their budget is already spent)
                         continue
                     if not pending:
+                        first = client.releases + 1
                         if fleet is not None:
-                            pending = fleet.produce_for(client, fleet.chunk)
+                            made = fleet.produce_for(client, fleet.chunk)
                         else:
                             f, l = client.produce()
-                            pending.append((client.client_id, f, l))
-                    cid, f, l = pending.popleft()
+                            made = [(client.client_id, f, l)]
+                        pending.extend((cid, f, l, first + i)
+                                       for i, (cid, f, l) in enumerate(made))
+                    cid, f, l, release = pending.popleft()
                     copies = 1
                     if faults is not None:
                         fate = faults.transit(cid)
                         copies = {"ok": 1, "dup": 2, "drop": 0}[fate]
+                    if relay is not None:
+                        f = (f, release)
                     for _ in range(copies):
                         while not queue.push(cid, f, l) and not stop.is_set():
                             time.sleep(0.001)  # backpressure
@@ -511,14 +657,19 @@ def drive_protocol(
                     faults, queue, server.step_count
                 ):
                     break
-                server.train_one(timeout=pop_timeout, retries=pop_retries,
-                                 backoff=pop_backoff)
+                if relay is None:
+                    server.train_one(timeout=pop_timeout, retries=pop_retries,
+                                     backoff=pop_backoff)
+                else:
+                    relay.lead_one(server, pop_timeout, pop_retries, pop_backoff)
         finally:
             # a thread mid-dispatch finishes it before it sees ``stop``; its
             # releases and launches must be counted before the run reports
             stop.set()
             for t in threads:
                 t.join(timeout=30.0)
+        if relay is not None:
+            relay.finish(clients, queue, fleet, faults, errors[0] if errors else None)
         if errors:
             cid, exc = errors[0]
             raise ClientLoopError(cid, exc) from exc

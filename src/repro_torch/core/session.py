@@ -337,9 +337,19 @@ class ProtocolEngine:
     over its banks, then one all-gather; per item: the owner's release,
     broadcast), and every pop's trunk update runs tensor-parallel over a
     model axis above 1. The queue, the trust boundary, stays a host object
-    that every rank drives in the same order. ``threaded=True`` refuses a
-    mesh: its client threads would issue the collectives in no fixed
-    order."""
+    that every rank drives in the same order. With ``threaded=True`` the
+    run has one arrival order, decided on the leader rank
+    (``protocol.LeaderRelay``): the leader alone runs the client threads,
+    the queue and the pops, its production without the client axis (the
+    banks are whole on every rank, so the client axis places them but does
+    not split production, and no value changes: a release is a function of
+    the client, its release number and the noise), and relays each pop to
+    every rank, which steps the trunk on it; at the end of each epoch's
+    drive every rank adopts the leader's accounting, so ``state``,
+    ``privacy_report()``, ``stats`` and ``fault_stats`` agree on every
+    rank, and a client thread's error raises ``ClientLoopError`` on every
+    rank. ``pops`` is the last run's arrival order as ``(client_id,
+    release)`` under a threaded mesh drive."""
 
     name = "protocol-async"
     # clients keep host-NumPy releases here; the fused-queue subclass flips it
@@ -366,11 +376,6 @@ class ProtocolEngine:
                         f"{CLIENT_AXIS!r} of size {size}; the stacked client banks shard "
                         "their leading axis evenly")
                 self._cax = MeshAxis(mesh, CLIENT_AXIS)
-            if threaded:
-                raise ValueError(
-                    "threaded=True does not run across ranks: its client threads would "
-                    "issue the mesh's collectives in no fixed order; use threaded=False "
-                    "(the deterministic drive) with mesh=")
         if tc.mode != "detached":
             raise ValueError(
                 f"{self.name} trains the server trunk only (the paper's "
@@ -410,6 +415,8 @@ class ProtocolEngine:
         self.step_metrics: List[Dict[str, np.ndarray]] = []
         self.queue: Optional[FeatureQueue] = None
         self.fleet: Optional[protocol_mod.FleetProducer] = None
+        self.relay: Optional[protocol_mod.LeaderRelay] = None
+        self.pops: List[Tuple[int, int]] = []
 
     def init(self, seed: int):
         """The trunk from the first full init drawn from the seed's
@@ -428,11 +435,18 @@ class ProtocolEngine:
         the reference's ``seed + 100003 * step``."""
         return self._seed + 100003 * int(step)
 
+    @property
+    def _split_production(self) -> bool:
+        """Whether production runs over the client axis: not in the
+        threaded drive, whose client threads must issue no collective."""
+        return self._cax is not None and not self.threaded
+
     def _make_clients(self, state, shards):
         """The fleet, seeded from the consumed server step; shared verbatim
         by protocol-async and fused-queue."""
         step = int(state["step"])
-        per_rank = self.tc.n_clients // (1 if self._cax is None else self._cax.size)
+        cax = self._cax if self._split_production else None
+        per_rank = self.tc.n_clients // (1 if cax is None else cax.size)
         return [
             protocol_mod.SplitClient(
                 c, self.adapter, state["client_banks"][c],
@@ -443,7 +457,7 @@ class ProtocolEngine:
                                                 seed=self._seed, step=step,
                                                 noise_fn=self.noise_fn),
                 as_numpy=self._client_as_numpy, device=self.device,
-                axis=self._cax, owner=c // per_rank,
+                axis=cax, owner=c // per_rank,
             )
             for c in range(self.tc.n_clients)
         ]
@@ -462,7 +476,7 @@ class ProtocolEngine:
         if self.production != "fleet":
             return None
         return protocol_mod.FleetProducer(clients, self._fleet_fwd, chunk=self.fleet_chunk,
-                                          mesh=self.mesh)
+                                          mesh=self.mesh if self._split_production else None)
 
     def _consume_epoch(self, consumer, clients, queue, shares, steps_per_epoch,
                        fleet=None, faults=None):
@@ -474,7 +488,7 @@ class ProtocolEngine:
             clients, consumer, queue, shares,
             consumer.step_count + steps_per_epoch, threaded=self.threaded,
             fleet=fleet, faults=faults, pop_timeout=self.pop_timeout,
-            pop_retries=self.pop_retries, pop_backoff=self.pop_backoff,
+            pop_retries=self.pop_retries, pop_backoff=self.pop_backoff, relay=self.relay,
         )
         # slice by the count BEFORE the drive: a quorum halt can end an
         # epoch short
@@ -514,8 +528,11 @@ class ProtocolEngine:
         clients = self._make_clients(state, shards)
         fleet = self._make_fleet(clients)
         # the last run's queue and fleet producer, for a caller's audit
-        # (``len(queue)``, ``fleet.dispatches``)
+        # (``len(queue)``, ``fleet.dispatches``), and its relay's pops
         self.queue, self.fleet = queue, fleet
+        if self.threaded and self.mesh is not None:
+            self.relay = protocol_mod.LeaderRelay(self.device)
+            self.pops = self.relay.pops
         consumer = self._make_consumer(state, queue)
         # one FaultRun spans the run: its transport streams are keyed on the
         # canonical step at fit time, the schedule on the server step
@@ -622,7 +639,7 @@ class FusedQueueEngine(ProtocolEngine):
             clients, consumer, queue, shares,
             step_before + steps_per_epoch, threaded=self.threaded,
             fleet=fleet, faults=faults, pop_timeout=self.pop_timeout,
-            pop_retries=self.pop_retries, pop_backoff=self.pop_backoff,
+            pop_retries=self.pop_retries, pop_backoff=self.pop_backoff, relay=self.relay,
         )
         if len(bank) == 0:
             # a quorum halt can end an epoch before a single item arrived

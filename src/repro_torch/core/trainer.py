@@ -96,16 +96,25 @@ def check_mesh(mesh, device, n_clients: Optional[int] = None,
             f"size {size}; the stacked client banks shard their leading axis evenly")
 
 
-def _trunk_sharder(mesh, axis: str = MODEL_AXIS) -> Optional[TrunkParallel]:
+def _trunk_sharder(mesh, adapter: SplitAdapter, axis: str = MODEL_AXIS
+                   ) -> Optional[TrunkParallel]:
     """The trunk's tensor parallelism over the mesh's model axis
     (``sharding.tensor_parallel.TrunkParallel``: Megatron column/row layers
     following ``trunk_specs``), or ``None``, the identity, where there is no
     mesh, no model axis, or the axis has size 1: that keeps the 1x1 and Nx1
-    meshes bit for bit the unsharded engines."""
+    meshes bit for bit the unsharded engines. An adapter without a
+    tensor-parallel trunk (``server_forward_tp`` is ``None``) gets ``None``
+    too: its trunk runs whole on every rank, as the reference's
+    ``trunk_specs`` replicates the leaves it does not recognise. The fused
+    and queue engines hold the trunk and its moments whole on every rank,
+    so such a trunk needs no gather of its gradient, and its values are
+    those of no mesh."""
     if mesh is None or axis not in axis_names(mesh) or mesh_shape(mesh)[axis] == 1:
         return None
     if mesh_device_type(mesh) is None:
         raise ValueError("a shape-only mesh has no ranks to run the trunk on")
+    if adapter.server_forward_tp is None:
+        return None
     return TrunkParallel(mesh, axis)
 
 
@@ -114,9 +123,6 @@ def _server_forward(adapter: SplitAdapter, tp: Optional[TrunkParallel]):
     tensor-parallel version under ``tp``."""
     if tp is None:
         return adapter.server_forward
-    if adapter.server_forward_tp is None:
-        raise ValueError(f"adapter {adapter.name!r} has no tensor-parallel trunk; use a "
-                         f"mesh whose {tp.name!r} axis has size 1")
     return lambda sp, f: adapter.server_forward_tp(sp, f, tp)
 
 
@@ -334,7 +340,8 @@ def _make_fused(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, dev
     ``mesh`` (a ``launch.mesh`` client or split mesh): each rank runs its
     clients' privacy layers and the features are gathered
     (``_shard_banked_forward``); the trunk runs tensor-parallel over a model
-    axis above 1 (``_trunk_sharder``). The flat buffer and its moments stay
+    axis above 1 (``_trunk_sharder``; whole on every rank for an adapter
+    without a tensor-parallel trunk). The flat buffer and its moments stay
     whole on every rank: a step's gradient comes back with this rank's
     chunks (its clients' banks, its trunk shards), one all-gather an axis
     completes it, and the clip and the update run the unsharded op sequence
@@ -349,7 +356,7 @@ def _make_fused(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, dev
         check_mesh(mesh, device, tc.n_clients, client_axis)
         fwd = _shard_banked_forward(fwd, mesh, client_axis, tc.n_clients)
         cax = MeshAxis(mesh, client_axis)
-    tp = _trunk_sharder(mesh)
+    tp = _trunk_sharder(mesh, adapter)
     server_fwd = _server_forward(adapter, tp)
     loss_banked = per_client_loss(adapter)
     metrics_banked = per_client_metrics(adapter)
@@ -531,8 +538,10 @@ def make_server_step(adapter: SplitAdapter, opt: Optimizer, grad_clip: float = 1
     parameters, leaf-wise ``clip_by_global_norm``, ``opt.update`` at the
     int32 ``step`` and ``apply_updates``. The moments stay trees. Under a
     ``mesh`` whose model axis is above 1 the trunk runs tensor-parallel and
-    its gradient is completed from the ranks' shards before the clip."""
-    tp = _trunk_sharder(mesh)
+    its gradient is completed from the ranks' shards before the clip (an
+    adapter without a tensor-parallel trunk runs it whole on every rank,
+    ``_trunk_sharder``)."""
+    tp = _trunk_sharder(mesh, adapter)
     server_fwd = _server_forward(adapter, tp)
 
     def step(params, opt_state, step, features, labels):

@@ -58,7 +58,7 @@ def make_server_batch_forward(adapter: SplitAdapter, mesh=None):
     slots run on zeros and their outputs are never routed. ``mesh`` runs
     the trunk tensor-parallel over its ``"model"`` axis like every training
     step (the identity on an axis of size 1 or none: bit for bit there)."""
-    server_fwd = _server_forward(adapter, _trunk_sharder(mesh))
+    server_fwd = _server_forward(adapter, _trunk_sharder(mesh, adapter))
 
     @torch.no_grad()
     def forward(server_params, feats):

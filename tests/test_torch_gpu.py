@@ -781,3 +781,54 @@ def test_1x1_mesh_on_the_card_is_bit_exact(cuda, engine):
     assert l0 == l1 and (pc0, dp0) == (pc1, dp1) and dp0 > 0
     for a, b in zip(tree_leaves(s0), tree_leaves(s1)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("engine", ["protocol-async", "fused-queue"])
+def test_threaded_1x1_mesh_on_the_card_replays_bit_for_bit(cuda, engine):
+    """The threaded drive on a 1x1 make_split_mesh on the card (a one-rank
+    NCCL group, the leader its only rank): a narrow CNN with both kernels
+    on, fleet chunks of 4. Launches equal the fleet's dispatches, and the
+    leader's pops replayed with no mesh (each client's releases made by a
+    no-mesh fleet producer in the same chunks, one no-mesh server step a
+    pop) give the trunk, its moments and the losses bit for bit."""
+    from repro_torch.core import SplitSession, SplitTrainConfig
+    from repro_torch.core.protocol import SplitServer
+    from repro_torch.core.queue import FeatureQueue
+    from repro_torch.launch.mesh import make_split_mesh
+
+    cfg = dataclasses.replace(COVID_CNN, input_hw=(16, 16), stages=((8, 1), (16, 1)),
+                              dense_units=(8,), use_kernel=True)
+    shards = split_clients(*make_covid_ct(60, hw=16, seed=0), shares=(0.7, 0.2, 0.1))
+
+    def session(eng, **kw):
+        return SplitSession(cnn_adapter(cfg),
+                            SplitTrainConfig(server_batch=12,
+                                             privacy=DPConfig(clip_norm=1.0, use_kernel=True)),
+                            adamw(1e-3), engine=eng, device="cuda", fleet_chunk=4, **kw)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        s = session(engine, threaded=True, pop_timeout=0.05,
+                    mesh=make_split_mesh(1, 1, n_clients=3))
+        pc0, dp0 = pc_ops.launches, dp_ops.launches
+        s.fit(shards, epochs=2, steps_per_epoch=5)
+        launched = (pc_ops.launches - pc0, dp_ops.launches - dp0)
+        ref = session("protocol-async")
+        eng, state = ref.engine, ref.native_state
+        clients = eng._make_clients(state, shards)
+        fleet = eng._make_fleet(clients)
+        server = SplitServer(eng.adapter, state["server"], eng.opt, FeatureQueue(),
+                             opt_state=state["opt"], device="cuda",
+                             step_fn=trainer.make_server_step(eng.adapter, eng.opt))
+        made = {c: [] for c in range(3)}
+        for cid, release in s.engine.pops:
+            while len(made[cid]) < release:
+                made[cid].extend(fleet.produce_for(clients[cid], 4))
+            server.consume(*made[cid][release - 1])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert launched == (s.engine.fleet.dispatches,) * 2 and launched[0] > 0
+    assert len(s.engine.pops) == 10 and server.losses == s.engine.losses
+    for a, b in zip(tree_leaves([server.params, server.opt_state]),
+                    tree_leaves([s.state["server"], s.state["opt"]])):
+        assert torch.equal(a, b)
