@@ -10,9 +10,10 @@ functions choose (``privacy_conv``: Cin 1 or generic, float4 or scalar
 stores; ``dp_release``: one block a row or a split row, float4 or scalar,
 with and without noise; each line prints its plan, and every
 ``dp_release`` check is relaunched and must give the same bits) and at the
-training path's shapes (a client's ``[21, 64, 64, 1]`` batch; the
-``[63, 32, 32, 16]`` and ``[63, 112, 112, 64]`` releases, with and without
-noise), then
+training path's shapes (a client's ``[21, 64, 64, 1]`` batch; the training
+step's banked ``[3, 21, 64, 64, 1]`` launch, with its backward against three
+per-client ``PrivacyConv`` calls; the ``[63, 32, 32, 16]`` and
+``[63, 112, 112, 64]`` releases, with and without noise), then
 drives the main path: guarded split-inference
 serving of the paper's COVID-CT CNN at its full published width (64x64x1
 inputs, stages 16/32/64/128/256, dense 64 -> 1, cut after stage 1) for three
@@ -24,9 +25,10 @@ each serving kernel against its plain version and against the plan it beat.
 
 Then it drives the training path, the paper's experiment through
 ``SplitSession.fit`` on the card: the COVID-CT CNN at its published width
-trained e2e by three hospitals with ``privacy_conv`` in every client stage
-(3 launches a step) and the guard's ``dp_release`` (one call a step over
-the 63 rows), counted apart from ``evaluate``, with the plans that ran, the
+trained e2e by three hospitals with ``privacy_conv`` in the client stage
+(ONE banked launch a step over the three hospitals' 63 images, as the
+reference vmaps the Pallas call) and the guard's ``dp_release`` (one call a
+step over the 63 rows), counted apart from ``evaluate``, with the plans that ran, the
 budget, a save/restore round trip that continues bit for bit, and every
 step of a kernel run retaken from the same state by the plain path on the
 card and on the CPU at the calibrated sigma, and by the plain path on the
@@ -149,8 +151,9 @@ Last, the mesh layer (``mesh=`` through the engines, on a 1x1
 trains train_covid's session one epoch under the grid, under
 ``make_client_mesh(1)`` and with no mesh, at the calibrated sigma and at
 sigma 0, and holds the losses, every state leaf and the launches a step
-equal; ``mesh_restore`` continues the grid's checkpoint without a mesh
-(and the reverse) bit for bit; ``mesh_serve`` serves a trace from the
+(one banked ``privacy_conv`` launch, one ``dp_release`` call) equal;
+``mesh_restore`` continues the grid's checkpoint without a mesh (and the
+reverse) bit for bit; ``mesh_serve`` serves a trace from the
 trained state under the grid and without, the same answers;
 ``mesh_time`` reads the profiler's device time a step under the grid and
 the NCCL all-gather's share of it; the group is then destroyed. Within the
@@ -188,6 +191,7 @@ Checkpoints go to a temporary directory under ``build/``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -260,8 +264,10 @@ from repro_torch.kernels.dp_release.ref import dp_release_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_mask  # noqa: E402
 from repro_torch.kernels.privacy_conv import ops as pc_ops  # noqa: E402
+from repro_torch.kernels.privacy_conv import ref as pc_ref  # noqa: E402
 from repro_torch.kernels.privacy_conv.ref import (  # noqa: E402
     privacy_conv_banked_ref,
+    privacy_conv_grouped_ref,
     privacy_conv_ref,
 )
 from repro_torch.kernels.selective_scan import ops as ss_ops  # noqa: E402
@@ -276,6 +282,7 @@ from repro_torch.launch.mesh import (  # noqa: E402
     release_meshes,
 )
 from repro_torch.launch.train import lm_shards  # noqa: E402
+from repro_torch.models import cnn as cnn_mod  # noqa: E402
 from repro_torch.models import model as model_lib  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.transformer import ModelOptions, stack_split  # noqa: E402
@@ -331,7 +338,8 @@ SCAN_CASE = ("falcon-mamba-7b", 4, 2048)
 # TABLE1 one, Cin 16 and Cin 40 (generic, float4; one and three chunks of 16
 # input channels, two and three channel blocks), and Cout 5, 6, 7 (scalar;
 # Cin 3, 1 and 20) at H, W that are no multiples of the 16-pixel tile;
-# "train_covid" is a client's batch of train_covid's step (21 of 63 rows);
+# "train_covid" is a client's batch of train_covid's step (21 of 63 rows;
+# the step runs the three as one banked launch, BANKED_CASES' "train_covid");
 # "fedavg_local" a FedAvg local batch and "audit" the attacked images, both
 # without model noise (FedAvg's and the attack's client forward draw none)
 CONV_CASES = {"covid": (64, 64, 64, 1, 16, 0.05), "train_covid": (21, 64, 64, 1, 16, 0.05),
@@ -343,9 +351,12 @@ CONV_CASES = {"covid": (64, 64, 64, 1, 16, 0.05), "train_covid": (21, 64, 64, 1,
 # banked privacy_conv check cases (N, b, H, W, Cin, Cout, noise_scale, cids,
 # banks): "fleet_covid" is one production cycle of queue_covid (quanta
 # round(shares * 10) = 7/2/1 items of the 21-row client batch, the COVID-CT
-# client stage), then the generic-Cin variant (float4) and the scalar one
+# client stage), "train_covid" train_covid's step (three hospitals of 21
+# rows, each on its own bank), then the generic-Cin variant (float4) and
+# the scalar one
 BANKED_CASES = {
     "fleet_covid": (10, 21, 64, 64, 1, 16, 0.05, (0,) * 7 + (1,) * 2 + (2,), 3),
+    "train_covid": (3, 21, 64, 64, 1, 16, 0.05, (0, 1, 2), 3),
     "generic": (4, 3, 32, 32, 16, 32, 0.1, (2, 0, 1, 2), 3),
     "scalar": (3, 2, 10, 14, 3, 5, 0.1, (1, 0, 1), 2)}
 SHARES = (0.7, 0.2, 0.1)
@@ -375,6 +386,15 @@ ADAM_B1 = 0.9  # adamw's default first-moment decay
 # moves one position's contribution, a few sparse elements (the CPU against
 # an H100 at one step: 78 of 458,305 elements apart by up to 5.6e-5)
 GRAD_TOL = 1e-3
+# train_forced's retake: a ReLU or pool decision that the kernel step and
+# another path's step take apart is accepted only at a near tie, its margin
+# (a ReLU input's |x|, a pool element's distance below its window's max) in
+# each run's values at most FLIP_EPS of the largest magnitude of the
+# decision's tensor (at least 1): float32 sums of up to 576 terms in two
+# orders part by about 1e-6 of it. A step is retaken on MAX_FLIPS flips at
+# most (2 to 4 seen a retaken step, PERF.md, PR 26).
+FLIP_EPS = 1e-5
+MAX_FLIPS = 16
 # FedAvg (fedavg_covid): 2 rounds x 5 local steps of batch 32 a hospital;
 # the audit (audit_covid): 4 images, 120 attack steps a sigma, the step of
 # privacy/audit.py (lr 0.05, sign term lr * 0.01), whose flipped sign(g)
@@ -537,6 +557,82 @@ def check_banked(gen, dev, errs: dict) -> dict:
               "bit_identical_unbanked": True, "bit_identical_relaunch": True,
               "max_abs_err": err, **KERNEL_TOL})
     return inputs
+
+
+def check_banked_grad(gen, dev, inputs: dict, errs: dict) -> None:
+    """The banked op's backward at train_covid's stage: ``privacy_conv_banked``
+    (one banked launch, the backward through the grouped plain version)
+    against three per-client ``PrivacyConv`` calls (three launches, each
+    backward through the unbanked plain version) on the same inputs and
+    upstream gradient: the forward within KERNEL_TOL, dx, dw and db within
+    GRAD_TOL in relative L2 norm."""
+    N, b, H, W, cin, cout, scale, cids, _ = BANKED_CASES["train_covid"]
+    x, w, bb, c, nz = inputs["train_covid"]
+    g = torch.randn((N, b, H // 2, W // 2, cout), generator=gen).to(dev)
+
+    def run(banked: bool):
+        xx, ww, bbb = (t.detach().clone().requires_grad_() for t in (x, w, bb))
+        if banked:
+            out = pc_ops.privacy_conv_banked(xx, ww, bbb, c, nz, noise_scale=scale)
+        else:
+            out = torch.stack([pc_ops.PrivacyConv.apply(xx[n], ww[k], bbb[k], nz[n], scale)
+                               for n, k in enumerate(cids)])
+        out.backward(g)
+        return out.detach(), {"dx": xx.grad, "dw": ww.grad, "db": bbb.grad}
+
+    before = pc_ops.launches
+    (got, got_g), (want, want_g) = run(True), run(False)
+    torch.cuda.synchronize()
+    if pc_ops.launches - before != 1 + N:
+        raise AssertionError(f"banked backward check launched {pc_ops.launches - before}, "
+                             f"want 1 banked and {N} unbanked")
+    case = "privacy_conv_banked/train_covid_grad"
+    errs[case] = max_err(got, want, **KERNEL_TOL, what=f"{case} forward")
+    rel = {k: float((got_g[k] - want_g[k]).norm() / want_g[k].norm()) for k in want_g}
+    if not all(v <= GRAD_TOL for v in rel.values()):
+        raise AssertionError(f"{case}: gradients part by {rel} in relative L2 (GRAD_TOL "
+                             f"{GRAD_TOL})")
+    emit({"phase": "check", "case": case, "shape": [N, b, H, W, cin, cout], "cids": list(cids),
+          "noise_scale": scale, "against": f"{N} per-client PrivacyConv calls",
+          "max_abs_err": errs[case], **KERNEL_TOL, "grad_rel_l2": rel, "grad_tol": GRAD_TOL})
+
+
+def time_banked_train(dev, inputs: dict) -> dict:
+    """train_covid's client stage: the banked launch (device ms) against its
+    plain version, the grouped convolution the backward runs (device ms, in
+    turns), and against three unbanked launches; then the stage's forward
+    and backward as the e2e step runs them, the banked op against three
+    per-client ``PrivacyConv`` calls, host-fed (the wrappers' and
+    autograd's host work included), in turns."""
+    N, b, H, W, cin, cout, scale, cids, banks = BANKED_CASES["train_covid"]
+    x, w, bb, c, nz = inputs["train_covid"]
+    banked = lambda: pc_ops.privacy_conv_banked_forward(x, w, bb, c, nz, scale)  # noqa: E731
+    k_ms, p_ms = paired_ms(banked, lambda: privacy_conv_grouped_ref(x, w, bb, c, nz,
+                                                                     noise_scale=scale))
+    u_ms = paired_ms(banked, lambda: [pc_ops.privacy_conv_forward(x[n], w[k], bb[k], nz[n],
+                                                                  scale)
+                                      for n, k in enumerate(cids)])[1]
+    ww, bbb = (t.detach().clone().requires_grad_() for t in (w, bb))
+    g = torch.ones((N, b, H // 2, W // 2, cout), device=dev)
+
+    def fwd_bwd_banked():
+        out = pc_ops.privacy_conv_banked(x, ww, bbb, c, nz, noise_scale=scale)
+        torch.autograd.grad(out, (ww, bbb), g)
+
+    def fwd_bwd_items():
+        out = torch.stack([pc_ops.PrivacyConv.apply(x[n], ww[k], bbb[k], nz[n], scale)
+                           for n, k in enumerate(cids)])
+        torch.autograd.grad(out, (ww, bbb), g)
+
+    step_ms, items_ms = paired_ms(fwd_bwd_banked, fwd_bwd_items, timer=host_fed_ms)
+    work = conv_work(N * b, H, W, cin, cout, scale)
+    nbytes = work["bytes"] + 4 * ((banks - 1) * (9 * cin * cout + cout) + N)
+    t = {"case": "privacy_conv_banked/train_covid", "shape": [N, b, H, W, cin, cout],
+         "ms": k_ms, "plain_ms": p_ms, "plain": "privacy_conv_grouped_ref (one grouped conv)",
+         "unbanked_x3_ms": u_ms, "fwd_bwd_host_fed_ms": step_ms,
+         "per_client_fwd_bwd_host_fed_ms": items_ms, "plan": pc_ops.plan_for(x, w, nz, scale),
+         "library_ms": None, **bound(nbytes, work["flops"])}
+    return t
 
 
 def conv_work(B, H, W, cin, cout, scale, esize: int = 4) -> dict:
@@ -880,14 +976,18 @@ def train_covid(dev, smi: str, tmp: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ran = kernel_counts()
-    # one privacy_conv launch a client a step; one dp_release call a step
-    # over the 3 x 21 rows (one launch at k = 1, two at k > 1)
+    # one banked privacy_conv launch a step over the 3 x 21 images; one
+    # dp_release call a step over the 63 rows (one launch at k = 1, two at
+    # k > 1)
     (release,) = ran["dp_release"]["plans"]
     (conv,) = ran["privacy_conv"]["plans"]
-    want = {"privacy_conv": 3 * n, "dp_release": n * release["plan"]["launches"]}
+    want = {"privacy_conv": n, "dp_release": n * release["plan"]["launches"]}
     got = {k: v["launches"] for k, v in ran.items()}
-    if got != want or release["calls"] != n or conv["calls"] != 3 * n:
-        raise AssertionError(f"training launches {ran}, want {want}")
+    banked_plan = {**pc_ops.conv_plan(63, 64, 64, 1, 16), "banked": True}
+    if (got != want or release["calls"] != n or conv["calls"] != n
+            or conv["plan"] != banked_plan):
+        raise AssertionError(f"training launches {ran}, want {want}, one banked plan "
+                             f"{banked_plan}")
     losses = step_losses(session)
     if len(losses) != n or not np.isfinite(losses).all():
         raise AssertionError(f"per-step losses {losses}")
@@ -932,6 +1032,118 @@ def train_covid(dev, smi: str, tmp: str) -> dict:
             "evaluate": {k: ev[k] for k in ("loss", "accuracy")}}
 
 
+class Branches:
+    """The discrete decisions of the COVID-CT CNN's training step, taken
+    through ``torch.relu``, ``cnn.max_pool`` and the banked layer's plain
+    ReLU and pool (``ref._relu_pool_noise``, which the kernel's backward
+    recomputes) while :meth:`active`: each ReLU's mask (``x > 0``) and
+    each 2x2 max-pool's ties (the window's elements equal to its max).
+    Decisions come in two sites: ``"client"``, the client stage's, one
+    ReLU and one pool an item (a single-conv stage; the banked layer's
+    decisions over all items are split into the items'), and ``"trunk"``,
+    the rest in call order. Without ``recorded`` it records each decision
+    with the values it was taken on and changes nothing. With another
+    step's record it takes the recorded decisions instead of its own (a
+    pool splits its gradient over the recorded ties, as ``amax`` does),
+    holds each decision's values within TRAIN_TOL of the recorded ones and
+    keeps each decision that differs with its margin (``flipped``; see
+    FLIP_EPS), which :meth:`done` holds to FLIP_EPS and MAX_FLIPS: the MoE
+    phases' retake with the first run's routing, for ReLU and pool
+    decisions."""
+
+    relu_fn = staticmethod(torch.relu)
+    pool_fn = staticmethod(cnn_mod.max_pool)
+    stage_fn = staticmethod(pc_ref._relu_pool_noise)
+    fleet_fn = staticmethod(cnn_mod.fleet_client_forward)
+
+    def __init__(self, recorded=None):
+        self.recorded, self.flipped, self.site = recorded, [], "trunk"
+        self.taken = {("client", "relu"): [], ("client", "pool"): [], ("trunk", None): []}
+
+    def _decide(self, kind, x, own):
+        key = (self.site, kind if self.site == "client" else None)
+        taken = self.taken[key]
+        if self.recorded is None:
+            taken.append((x.detach().cpu(), own.cpu()))
+            return own
+        rx, theirs = self.recorded[key][len(taken)]
+        taken.append(None)
+        mine = x.detach().cpu()
+        max_err(mine, rx, **TRAIN_TOL, what=f"{key} decision {len(taken)}'s values")
+        flips = own.cpu() != theirs
+        if flips.any():
+            margin = (lambda v: v.abs()) if kind == "relu" else self._below_max
+            gap = torch.maximum(margin(mine), margin(rx))
+            scale = max(1.0, float(rx.abs().amax()))
+            self.flipped += [{"site": self.site, "kind": kind, "decision": len(taken),
+                              "margin": m / scale} for m in gap[flips].tolist()]
+        return theirs.to(x.device)
+
+    def _windows(self, x):
+        h, w = x.shape[-3], x.shape[-2]
+        return x.reshape(x.shape[:-3] + (h // 2, 2, w // 2, 2, x.shape[-1]))
+
+    def _below_max(self, x):
+        """Each element's distance below its pool window's max."""
+        win = self._windows(x)
+        return win.amax(dim=(-4, -2), keepdim=True) - win
+
+    def relu(self, x):
+        mask = self._decide("relu", x, x > 0)
+        return self.relu_fn(x) if self.recorded is None else torch.where(mask, x, 0.0)
+
+    def max_pool(self, x, size: int = 2):
+        win = self._windows(x)
+        ties = self._decide("pool", x, win == win.amax(dim=(-4, -2), keepdim=True))
+        if self.recorded is None:
+            return self.pool_fn(x, size)
+        t = ties.to(x.dtype)
+        return (win * t).sum(dim=(-4, -2)) / t.sum(dim=(-4, -2))
+
+    def stage(self, y, noise, noise_scale, dtype):
+        """The banked layer's ReLU and pool, recorded item by item."""
+        if self.recorded is not None:
+            raise AssertionError("decisions are replayed on the plain path only")
+        r = self.relu_fn(y)
+        win = self._windows(r)
+        ties = win == win.amax(dim=(-4, -2), keepdim=True)
+        self.site = "client"
+        for n in range(y.shape[0]):
+            self._decide("relu", y[n], y[n] > 0)
+            self._decide("pool", r[n], ties[n])
+        self.site = "trunk"
+        with mock.patch.object(torch, "relu", self.relu_fn):
+            return self.stage_fn(y, noise, noise_scale, dtype)
+
+    def fleet(self, *args, **kwargs):
+        self.site = "client"
+        try:
+            return self.fleet_fn(*args, **kwargs)
+        finally:
+            self.site = "trunk"
+
+    def active(self):
+        stack = contextlib.ExitStack()
+        for obj, name, fn in ((torch, "relu", self.relu), (cnn_mod, "max_pool", self.max_pool),
+                              (pc_ref, "_relu_pool_noise", self.stage),
+                              (cnn_mod, "fleet_client_forward", self.fleet)):
+            stack.enter_context(mock.patch.object(obj, name, fn))
+        return stack
+
+    def done(self) -> None:
+        """Raise unless a replay took every recorded decision, and each
+        decision it took apart from the record was a near tie (FLIP_EPS),
+        MAX_FLIPS of them at most."""
+        for key, rec in self.recorded.items():
+            if len(self.taken[key]) != len(rec):
+                raise AssertionError(f"{key}: {len(self.taken[key])} decisions replayed of "
+                                     f"{len(rec)} recorded")
+        wide = [f for f in self.flipped if not f["margin"] <= FLIP_EPS]
+        if wide or len(self.flipped) > MAX_FLIPS:
+            raise AssertionError(f"{len(self.flipped)} decisions flipped (at most {MAX_FLIPS}), "
+                                 f"{len(wide)} beyond FLIP_EPS {FLIP_EPS}: {self.flipped}")
+
+
 def train_forced(dev, shards, noise_scale, against) -> dict:
     """``train_forced``: the gate of the kernel run against the plain run on
     the card (``"plain_card"``) and on the CPU (``"cpu"``), the paths named
@@ -942,6 +1154,18 @@ def train_forced(dev, shards, noise_scale, against) -> dict:
       step's;
     - its gradient (read back from AdamW's first moment, ``(mu' - b1 mu) /
       (1 - b1)``) within GRAD_TOL of the kernel step's in relative L2 norm.
+
+    Where a path's gradient parts by more, the kernel step is taken again
+    with its ReLU and pool decisions recorded (:class:`Branches`; the
+    client stage's from the banked layer's backward), and the path retakes
+    the step on them: every decision's values within TRAIN_TOL of the
+    kernel step's, each decision taken apart a near tie (FLIP_EPS), at
+    most MAX_FLIPS of them, the gradient within GRAD_TOL of the kernel
+    step's. A decision that float32 rounding flips at a near tie moves a
+    whole position's share of the gradient (a dense unit's, a whole row of
+    its weight's): the retake prints those flips with their margins and
+    shows that nothing else differs, as the MoE phases retake a flipped
+    routing.
 
     ``noise_scale`` pins the guard's sigma (``None``: calibrated). At the
     calibrated sigma (9.69) the guard's noise, of norm about 1240 a row,
@@ -969,39 +1193,68 @@ def train_forced(dev, shards, noise_scale, against) -> dict:
         lens, tuple(data_x.shape[2:]), torch.Generator().manual_seed(5), "cpu")
     worst = {name: {"metrics": 0.0, "grad_rel_l2": 0.0, "grad_max_abs_err": 0.0}
              for name in paths if name != "kernel"}
+    retaken = []
     cut = lambda a: None if a is None else a[t:t + 1]  # noqa: E731
     losses = []
     reset_counts()
     for t in range(n):
         step = SamplePlan(cut(plan.idx), cut(plan.model_noise), cut(plan.guard_noise))
-        out = {}
-        for name, (run, (data_x, data_y, _), where) in runs.items():
+        mu0 = state["opt"]["mu"].cpu()
+        grad = lambda st: (st["opt"]["mu"].cpu() - ADAM_B1 * mu0) / (1 - ADAM_B1)  # noqa
+
+        def take(name, branches=None):
+            run, (data_x, data_y, _), where = runs[name]
             s0 = tree_map(lambda a: a.to(where), state)
-            out[name] = run(s0, data_x, data_y, step.to(where))
+            with branches.active() if branches is not None else contextlib.nullcontext():
+                return run(s0, data_x, data_y, step.to(where))
+
+        out = {name: take(name) for name in runs}
         k_state, k_m = out["kernel"]
         losses.append(float(k_m["loss"].reshape(-1)[0]))
-        mu0 = state["opt"]["mu"].cpu()
-        k_grad = (k_state["opt"]["mu"].cpu() - ADAM_B1 * mu0) / (1 - ADAM_B1)
+        k_grad = grad(k_state)
+        kernel_branches = None
         for name, w in worst.items():
             o_state, o_m = out[name]
             for key in k_m:
                 w["metrics"] = max(w["metrics"], max_err(o_m[key].cpu(), k_m[key].cpu(),
                                                          **TRAIN_TOL, what=f"{name} {key} {t}"))
-            o_grad = (o_state["opt"]["mu"].cpu() - ADAM_B1 * mu0) / (1 - ADAM_B1)
+            o_grad = grad(o_state)
             rel = float((o_grad - k_grad).norm() / k_grad.norm())
             if not rel <= GRAD_TOL:
-                raise AssertionError(f"{name} step {t}: gradient relative L2 error {rel}")
+                # the kernel step again, its decisions recorded (the same
+                # bits: cuDNN is deterministic here), then this path's step
+                # on them
+                if kernel_branches is None:
+                    kernel_branches = Branches()
+                    pc0, dp0 = pc_ops.launches, dp_ops.launches
+                    if not torch.equal(grad(take("kernel", kernel_branches)[0]), k_grad):
+                        raise AssertionError(f"step {t}: the kernel step, retaken, gave "
+                                             "other bits")
+                    pc_ops.launches, dp_ops.launches = pc0, dp0
+                replay = Branches(kernel_branches.taken)
+                o_grad = grad(take(name, replay)[0])
+                r_rel = float((o_grad - k_grad).norm() / k_grad.norm())
+                retaken.append({"path": name, "step": t, "grad_rel_l2": rel,
+                                "flips": len(replay.flipped), "flipped": replay.flipped,
+                                "on_kernel_branches_grad_rel_l2": r_rel})
+                emit({"phase": "train_forced_retake", **retaken[-1]})
+                replay.done()
+                if not r_rel <= GRAD_TOL:
+                    raise AssertionError(f"{name} step {t}: gradient relative L2 error {rel}, "
+                                         f"{r_rel} on the kernel step's decisions "
+                                         f"({len(replay.flipped)} flipped)")
+                rel = r_rel
             w["grad_rel_l2"] = max(w["grad_rel_l2"], rel)
             w["grad_max_abs_err"] = max(w["grad_max_abs_err"],
                                         float((o_grad - k_grad).abs().max()))
         state = k_state
     launches = {"privacy_conv": pc_ops.launches, "dp_release": dp_ops.launches}
-    if launches != {"privacy_conv": 3 * n, "dp_release": n}:
+    if launches != {"privacy_conv": n, "dp_release": n}:
         raise AssertionError(f"forced steps launched {launches}")
     sigma = PrivacyGuard(sess.config.privacy).sigma
     emit({"phase": "train_forced", "sigma": sigma, "steps": n, "kernel_launches": launches,
           "kernel_step_losses": losses,
-          "max_err": worst, "tf32": False,
+          "max_err": worst, "retaken_on_kernel_branches": retaken, "tf32": False,
           "cudnn_deterministic": torch.backends.cudnn.deterministic, "grad_tol": GRAD_TOL,
           **TRAIN_TOL})
     return worst
@@ -1314,7 +1567,9 @@ def queue_gate(sess, cpu: bool) -> dict:
     cfg = dataclasses.replace(COVID_CNN, use_kernel=False)
     plain_dp = dataclasses.replace(sess.config.privacy, use_kernel=False)
     plain_fleet = make_fleet_release_fwd(cnn_adapter(cfg), PrivacyGuard(plain_dp))
-    to_cpu = lambda t: tree_map(lambda a: a.cpu(), t)  # noqa: E731
+    # the recorded arguments hold the item-to-bank map as host ints
+    to_cpu = lambda t: tree_map(  # noqa: E731
+        lambda a: a.cpu() if isinstance(a, torch.Tensor) else a, t)
     kernel_rel, plain_rel, cpu_rel = [], [], []
     rel_err = {"plain_card": 0.0, "cpu": 0.0}
     reset_counts()
@@ -3183,13 +3438,19 @@ def mesh_covid(dev, smi: str, tmp: str, shards) -> dict:
             t0 = time.perf_counter()
             sess.fit(shards, epochs=1, steps_per_epoch=COVID_STEPS)
             torch.cuda.synchronize()
-            runs[name] = {"session": sess, "wall_s": time.perf_counter() - t0,
-                          "losses": step_losses(sess),
-                          "launches": {k: v["launches"] for k, v in kernel_counts().items()}}
+            wall = time.perf_counter() - t0
+            ran = kernel_counts()
+            (release,) = ran["dp_release"]["plans"]
+            (conv,) = ran["privacy_conv"]["plans"]
+            if not conv["plan"].get("banked") or conv["calls"] != COVID_STEPS:
+                raise AssertionError(f"mesh_train {sigma_name}/{name}: privacy_conv ran {conv}, "
+                                     "want one banked launch a step")
+            runs[name] = {"session": sess, "wall_s": wall,
+                          "losses": step_losses(sess), "release_plan": release["plan"],
+                          "launches": {k: v["launches"] for k, v in ran.items()}}
         base = runs["none"]
-        (release,) = kernel_counts()["dp_release"]["plans"]
-        want = {"privacy_conv": 3 * COVID_STEPS,
-                "dp_release": COVID_STEPS * release["plan"]["launches"]}
+        want = {"privacy_conv": COVID_STEPS,
+                "dp_release": COVID_STEPS * base["release_plan"]["launches"]}
         for name, r in runs.items():
             if r["launches"] != want:
                 raise AssertionError(f"mesh_train {sigma_name}/{name} launches {r['launches']}, "
@@ -3887,6 +4148,7 @@ def main() -> None:
     if seen != {(c, v) for c in (1, 0) for v in (True, False)}:
         raise AssertionError(f"privacy_conv variants checked {sorted(seen)}, want all four")
     banked_inputs = check_banked(gen, dev, errs)
+    check_banked_grad(gen, dev, banked_inputs, errs)
     sigma = DPConfig().sigma
     release_inputs, seen = check_releases(gen, dev, release_cases(sigma), errs)
     if seen != {(k, v, n) for k in (False, True) for v in (False, True) for n in (False, True)}:
@@ -4021,13 +4283,7 @@ def main() -> None:
                                              "the conv alone",
                              "cudnn_conv_only_ms": conv_only,
                              **conv_work(*CONV_CASES["covid"])}
-    xt_, wt_, bt_, nzt_ = conv_inputs["train_covid"]
-    k_ms, p_ms = paired_ms(lambda: pc_ops.privacy_conv_forward(xt_, wt_, bt_, nzt_, scale),
-                           lambda: privacy_conv_ref(xt_, wt_, bt_, nzt_, noise_scale=scale))
-    timed["privacy_conv/train_covid"] = {
-        "case": "privacy_conv/train_covid", "ms": k_ms, "plain_ms": p_ms,
-        "plan": pc_ops.plan_for(xt_, wt_, nzt_, scale), "library_ms": None,
-        **conv_work(*CONV_CASES["train_covid"])}
+    timed["privacy_conv_banked/train_covid"] = time_banked_train(dev, banked_inputs)
     for case in ("covid", "mura", "train_mura"):
         xr, nr = release_inputs[case]
         rel_fns = (lambda: dp_ops.dp_release_forward(xr, nr, 1.0, sigma),
@@ -4252,8 +4508,9 @@ def main() -> None:
     training = {"privacy_conv": {"train_covid": covid["covid"]["privacy_conv"], "train_mura": 0},
                 "dp_release": {"train_covid": covid["covid"]["dp_release"],
                                "train_mura": mura_launches["dp_release"]}}
-    # device ms a call at a training shape (a client's batch; MURA's cut)
-    training_ms = {"privacy_conv": timed["privacy_conv/train_covid"],
+    # device ms a call at a training shape (the step's banked launch over the
+    # three hospitals; MURA's cut)
+    training_ms = {"privacy_conv": timed["privacy_conv_banked/train_covid"],
                    "dp_release": timed["dp_release/train_mura"]}
     # launches on the queue path, each phase's run read apart (queue_covid:
     # the calibrated-sigma runs, fleet and per item, each engine)

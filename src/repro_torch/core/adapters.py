@@ -10,10 +10,13 @@ caller knows whether to draw that noise and can draw it first.
 
 The banked views (``banked_client_forward``, ``per_client_loss``,
 ``per_client_metrics``) take a leading client axis C on every argument, as
-the JAX package's vmapped ones do; here they loop over the clients, since
-every client's bank differs. ``fleet_release_forward`` is the queue
-engines' production cycle: N items, each on its own client's bank, with the
-CNN's single-conv kernel stages in one banked ``privacy_conv`` launch.
+the JAX package's vmapped ones do. The client stage runs as the adapter's
+``fleet_client_forward`` where it has one (the CNN's: one banked
+``privacy_conv`` launch a single-conv kernel stage, over every client),
+else as a loop over the clients, since every client's bank differs; the
+loss and the metrics loop. ``fleet_release_forward`` is the queue engines'
+production cycle: N items, each on its own client's bank, through the same
+``fleet_client_forward``.
 """
 from __future__ import annotations
 
@@ -48,13 +51,35 @@ class SplitAdapter:
     metrics: Callable[[Any, Any], Dict[str, torch.Tensor]]
     feature_shape: Callable[[Tuple[int, ...]], Tuple[int, ...]]  # input -> release shape
     noise_scale: float = 0.0  # the model noise's scale in client_forward
-    # (stacked_banks, cids, xs, noise) -> features [N, b, ...] of N items,
-    # item n on bank cids[n]; None: client_forward item by item
+    # (stacked_banks, bank_of, xs, noise) -> features [N, b, ...] of N
+    # items, item n on bank bank_of[n] (a host sequence); None:
+    # client_forward item by item
     fleet_client_forward: Optional[Callable[..., Any]] = None
     # (server_params, features, tp) -> outputs: server_forward tensor-parallel
     # over a mesh's model axis (tp a sharding.tensor_parallel.TrunkParallel);
     # None: the adapter's trunk has no such path
     server_forward_tp: Optional[Callable[..., Any]] = None
+
+
+def _client_features(adapter: SplitAdapter, banks, bank_of, xs, model_noise):
+    """The privacy layer of N items, item n on bank ``bank_of[n]`` (a host
+    sequence): ``adapter.fleet_client_forward``, or ``client_forward`` item
+    by item on views of the stacked banks for an adapter without one."""
+    if adapter.fleet_client_forward is not None:
+        return adapter.fleet_client_forward(banks, bank_of, xs, model_noise)
+    return torch.stack([
+        adapter.client_forward(tree_map(lambda a, c=c: a[c], banks), xs[n],
+                               None if model_noise is None else model_noise[n])
+        for n, c in enumerate(bank_of)])
+
+
+def _release_rows(guard, feats, guard_noise, plan_rows):
+    """The guard's release ONCE over the ``[N*b, ...]`` rows of ``feats``
+    ``[N, b, ...]``: its clip is per row, so that equals a release per
+    item."""
+    rows = feats.reshape((-1,) + tuple(feats.shape[2:]))
+    noise = None if guard_noise is None else guard_noise.reshape(rows.shape)
+    return guard.release_with_noise(rows, noise, plan_rows).reshape(feats.shape)
 
 
 def banked_client_forward(adapter: SplitAdapter, guard=None) -> Callable[..., torch.Tensor]:
@@ -64,57 +89,42 @@ def banked_client_forward(adapter: SplitAdapter, guard=None) -> Callable[..., to
     features' shape (``None``: no model noise) and, with an enabled
     ``PrivacyGuard``, its noise ``[C, b, ...]``.
 
-    Each client's privacy layer runs on its own bank (one ``privacy_conv``
-    launch a client where the model has the kernel on). The guard's release
-    then runs ONCE over the ``[C*b, ...]`` rows: its clip is per row, so
-    that equals a release per client (one ``dp_release`` call a step).
-    ``plan_rows``: the whole release's rows where ``banks`` are a rank's
-    share of a mesh's clients (``dp_release``'s plan is chosen for them)."""
+    Client c runs on bank c, all C at once through
+    ``adapter.fleet_client_forward`` where the adapter has one (the CNN
+    with the kernel on: one differentiable banked ``privacy_conv`` launch a
+    single-conv stage a step, the counterpart of the reference's
+    ``jax.vmap`` of ``client_forward``), else one ``client_forward`` a
+    client. The guard's release then runs ONCE over the ``[C*b, ...]``
+    rows (one ``dp_release`` call a step). ``plan_rows``: the whole
+    release's rows where ``banks`` are a rank's share of a mesh's clients
+    (``dp_release``'s plan is chosen for them)."""
     guarded = guard is not None and guard.enabled
 
     def fwd(banks, xs, model_noise=None, guard_noise=None, plan_rows=None):
-        feats = torch.stack([
-            adapter.client_forward(tree_map(lambda a, c=c: a[c], banks), xs[c],
-                                   None if model_noise is None else model_noise[c])
-            for c in range(xs.shape[0])])
-        if not guarded:
-            return feats
-        rows = feats.reshape((-1,) + tuple(feats.shape[2:]))
-        noise = None if guard_noise is None else guard_noise.reshape(rows.shape)
-        return guard.release_with_noise(rows, noise, plan_rows).reshape(feats.shape)
+        feats = _client_features(adapter, banks, range(xs.shape[0]), xs, model_noise)
+        return _release_rows(guard, feats, guard_noise, plan_rows) if guarded else feats
 
     return fwd
 
 
 def fleet_release_forward(adapter: SplitAdapter, guard=None) -> Callable[..., torch.Tensor]:
-    """``(stacked_banks, cids, xs, model_noise=None, guard_noise=None) ->
-    features [N, b, ...]``: a production cycle of N queue items, item n with
-    batch ``xs[n]`` on bank ``cids[n]`` (``cids`` an int32 tensor on the
-    items' device) and its noise ``model_noise[n]``, ``guard_noise[n]``.
+    """``(stacked_banks, bank_of, xs, model_noise=None, guard_noise=None,
+    plan_rows=None) -> features [N, b, ...]``: a production cycle of N
+    queue items, item n with batch ``xs[n]`` on bank ``bank_of[n]`` (a host
+    sequence) and its noise ``model_noise[n]``, ``guard_noise[n]``.
 
     The privacy layer runs as ``adapter.fleet_client_forward`` (the CNN's:
     one banked ``privacy_conv`` launch a single-conv kernel stage) or, for
     an adapter without one, ``client_forward`` item by item on views of the
     stacked banks. The guard's release then runs ONCE over the ``[N*b,
-    ...]`` rows: its clip is per row, so that equals a release per item (one
-    ``dp_release`` call a cycle). Per item the result is what
-    ``client_forward`` and the guard give one item. ``plan_rows``: the
+    ...]`` rows (one ``dp_release`` call a cycle). Per item the result is
+    what ``client_forward`` and the guard give one item. ``plan_rows``: the
     whole cycle's rows where this is a rank's share of a mesh's items."""
     guarded = guard is not None and guard.enabled
 
-    def fwd(banks, cids, xs, model_noise=None, guard_noise=None, plan_rows=None):
-        if adapter.fleet_client_forward is not None:
-            feats = adapter.fleet_client_forward(banks, cids, xs, model_noise)
-        else:
-            feats = torch.stack([
-                adapter.client_forward(tree_map(lambda a, c=c: a[c], banks), xs[n],
-                                       None if model_noise is None else model_noise[n])
-                for n, c in enumerate(cids.tolist())])
-        if not guarded:
-            return feats
-        rows = feats.reshape((-1,) + tuple(feats.shape[2:]))
-        noise = None if guard_noise is None else guard_noise.reshape(rows.shape)
-        return guard.release_with_noise(rows, noise, plan_rows).reshape(feats.shape)
+    def fwd(banks, bank_of, xs, model_noise=None, guard_noise=None, plan_rows=None):
+        feats = _client_features(adapter, banks, bank_of, xs, model_noise)
+        return _release_rows(guard, feats, guard_noise, plan_rows) if guarded else feats
 
     return fwd
 
@@ -157,8 +167,8 @@ def cnn_adapter(cfg: CNNConfig) -> SplitAdapter:
         metrics=metrics,
         feature_shape=lambda shape: cnn_mod.feature_shape(cfg, shape),
         noise_scale=cfg.privacy_noise,
-        fleet_client_forward=lambda banks, cids, xs, noise=None: cnn_mod.fleet_client_forward(
-            {"client": banks}, cfg, cids, xs, noise),
+        fleet_client_forward=lambda banks, bank_of, xs, noise=None: cnn_mod.fleet_client_forward(
+            {"client": banks}, cfg, bank_of, xs, noise),
         server_forward_tp=lambda sp, f, tp: cnn_mod.server_forward_tp({"server": sp}, cfg, f, tp),
     )
 

@@ -77,6 +77,18 @@ class RemoteClientError(RuntimeError):
         return self.leader_repr
 
 
+class RemoteLeaderError(RuntimeError):
+    """An exception of the leader rank's main thread in the threaded drive
+    under a mesh (``protocol.LeaderRelay``: a pop, the quorum check, the
+    relay's own work), as every other rank sees it: the leader ends the
+    drive on every rank and sends the exception's ``repr``, which this
+    carries; the leader itself raises the original."""
+
+    def __init__(self, leader_repr: str):
+        super().__init__(f"the leader rank raised {leader_repr}")
+        self.leader_repr = leader_repr
+
+
 def _quanta_from_shares(shares: Sequence[float]) -> List[int]:
     """The round-robin drive's share->quanta formula (one source of truth:
     ``drive_protocol`` and the fault path must agree bit-for-bit)."""

@@ -53,7 +53,12 @@ import torch.distributed as dist
 from repro_torch.common.device import resolve_device, seeded_generator
 from repro_torch.common.tree import tree_leaves
 from repro_torch.core.adapters import SplitAdapter, fleet_release_forward
-from repro_torch.core.faults import ClientLoopError, FaultRun, RemoteClientError
+from repro_torch.core.faults import (
+    ClientLoopError,
+    FaultRun,
+    RemoteClientError,
+    RemoteLeaderError,
+)
 from repro_torch.core.queue import FeatureQueue, FeatureSlice, as_tensor
 from repro_torch.core.trainer import CLIENT_AXIS, make_server_step, stack_pytrees
 from repro_torch.launch.mesh import axis_names
@@ -84,10 +89,11 @@ def make_client_release_fwd(adapter: SplitAdapter,
 
 def make_fleet_release_fwd(adapter: SplitAdapter, guard: Optional[PrivacyGuard] = None
                            ) -> Callable[..., torch.Tensor]:
-    """The fleet-batched release: ``(stacked_banks, cids, xs, model_noise,
-    guard_noise) -> features [N, b, ...]`` for a production cycle of N items
-    (``adapters.fleet_release_forward``), item n on bank ``cids[n]``: per
-    item exactly what ``make_client_release_fwd`` computes."""
+    """The fleet-batched release: ``(stacked_banks, bank_of, xs,
+    model_noise, guard_noise, plan_rows) -> features [N, b, ...]`` for a
+    production cycle of N items (``adapters.fleet_release_forward``), item
+    n on bank ``bank_of[n]``: per item exactly what
+    ``make_client_release_fwd`` computes."""
     return torch.no_grad()(fleet_release_forward(adapter, guard))
 
 
@@ -271,10 +277,8 @@ class FleetProducer:
     def _forward(self, cids, xs, model, guard, plan_rows):
         """One fleet forward over these items, on this rank's banks."""
         stack = lambda ts: None if ts[0] is None else torch.stack(ts)  # noqa: E731
-        local_ids = torch.tensor([c - self._lo for c in cids], dtype=torch.int32,
-                                 device=self.device)
-        args = (self._banks, local_ids, torch.as_tensor(np.stack(xs), device=self.device),
-                stack(model), stack(guard))
+        args = (self._banks, [c - self._lo for c in cids],
+                torch.as_tensor(np.stack(xs), device=self.device), stack(model), stack(guard))
         feats = self._fwd(*args, plan_rows=plan_rows)
         with self._lock:
             self.dispatches += 1
@@ -397,11 +401,20 @@ class LeaderRelay:
     client's releases, the fleet's dispatches, the fault run's counters
     and halt, and a client thread's error, which every rank then raises as
     ``ClientLoopError`` (a ``RemoteClientError`` with the leader's ``repr``
-    as the cause). A follower's queue carries the leader's counters, not
-    its items, and its clients produce nothing; each run builds the
-    clients anew from the server step, which every rank shares, so a later
-    fit starts every rank's sampling and noise streams where the leader's
-    stand. ``pops`` is the run's arrival order as ``(client_id,
+    as the cause). The end is sent from the drive's ``finally``, so an
+    exception of the leader's main thread (a pop, the quorum check, the
+    relay's own work) ends the drive on every rank too: the leader raises
+    it, every other rank a ``RemoteLeaderError`` with its ``repr``. An item
+    is built whole before its header goes out, so no such exception falls
+    between a header and its payload. Not covered: an exception inside a
+    collective, which breaks the group, and one inside the step that every
+    rank runs on an item (``consume``: the trunk step, tensor-parallel over
+    a model axis), which the other ranks raise themselves from the same
+    computation; the leader then sends no end. A follower's queue carries
+    the leader's counters, not its items, and its clients produce nothing;
+    each run builds the clients anew from the server step, which every rank
+    shares, so a later fit starts every rank's sampling and noise streams
+    where the leader's stand. ``pops`` is the run's arrival order as ``(client_id,
     release)``, on every rank.
 
     Queue items cross the leader's queue as ``(client_id, (features,
@@ -411,6 +424,7 @@ class LeaderRelay:
         self.device = device
         self.leader = dist.get_rank() == 0
         self.pops: List[Tuple[int, int]] = []
+        self.stepping = False  # inside an item's step, which every rank runs
 
     def _bcast(self, t: torch.Tensor) -> torch.Tensor:
         dist.broadcast(t, src=0)
@@ -427,16 +441,21 @@ class LeaderRelay:
             self._header(_EMPTY)
             return
         cid, (features, release), labels = item
+        f = as_tensor(features, self.device).contiguous()
+        y = torch.as_tensor(np.asarray(labels), device=self.device)
         self._header(_ITEM, cid, release)
-        self._bcast(as_tensor(features, self.device).contiguous())
-        self._bcast(torch.as_tensor(np.asarray(labels), device=self.device))
+        self._bcast(f)
+        self._bcast(y)
         self.pops.append((cid, release))
+        self.stepping = True
         server.consume(cid, features, labels)
+        self.stepping = False
 
     def follow(self, server, clients: Sequence[SplitClient], queue: FeatureQueue,
                fleet: Optional[FleetProducer], faults: Optional[FaultRun]) -> None:
         """Another rank: consume the leader's items until the end of its
-        drive, then adopt its accounting (raising its client error)."""
+        drive, then adopt its accounting (raising its main thread's error,
+        else its client error)."""
         c0 = clients[0]
         x_shape = (c0.batch,) + tuple(c0.x.shape[1:])
         f_shape, f_dtype = tuple(c0.adapter.feature_shape(x_shape)), _dtype_of(c0.params)
@@ -461,6 +480,8 @@ class LeaderRelay:
         if faults is not None:
             for k, v in acc["faults"].items():
                 setattr(faults, k, v)
+        if acc["leader_error"] is not None:
+            raise RemoteLeaderError(acc["leader_error"])
         if acc["error"] is not None:
             cid, cause = acc["error"]
             err = RemoteClientError(cause)
@@ -468,8 +489,11 @@ class LeaderRelay:
 
     def finish(self, clients: Sequence[SplitClient], queue: FeatureQueue,
                fleet: Optional[FleetProducer], faults: Optional[FaultRun],
-               error: Optional[Tuple[int, BaseException]]) -> None:
-        """Leader: end the drive on every rank and send the accounting."""
+               error: Optional[Tuple[int, BaseException]],
+               leader_error: Optional[BaseException] = None) -> None:
+        """Leader: end the drive on every rank and send the accounting, with
+        a client thread's ``error`` and the main thread's
+        ``leader_error``."""
         self._header(_STOP)
         fault_counters = None if faults is None else {
             k: getattr(faults, k) for k in ("transit_dropped", "duplicated", "down_cycles",
@@ -477,7 +501,8 @@ class LeaderRelay:
         self._json({"queue": queue.stats(), "releases": [int(c.releases) for c in clients],
                     "dispatches": None if fleet is None else fleet.dispatches,
                     "faults": fault_counters,
-                    "error": None if error is None else [error[0], repr(error[1])]})
+                    "error": None if error is None else [error[0], repr(error[1])],
+                    "leader_error": None if leader_error is None else repr(leader_error)})
 
     def _json(self, obj=None):
         """``obj`` from the leader, as JSON, on every rank."""
@@ -649,6 +674,7 @@ def drive_protocol(
         ]
         for t in threads:
             t.start()
+        leader_error = None
         try:
             while server.step_count < total_server_steps:
                 if errors:
@@ -662,14 +688,18 @@ def drive_protocol(
                                      backoff=pop_backoff)
                 else:
                     relay.lead_one(server, pop_timeout, pop_retries, pop_backoff)
+        except BaseException as e:  # sent to the other ranks, then re-raised
+            leader_error = e
+            raise
         finally:
             # a thread mid-dispatch finishes it before it sees ``stop``; its
             # releases and launches must be counted before the run reports
             stop.set()
             for t in threads:
                 t.join(timeout=30.0)
-        if relay is not None:
-            relay.finish(clients, queue, fleet, faults, errors[0] if errors else None)
+            if relay is not None and not relay.stepping:
+                relay.finish(clients, queue, fleet, faults, errors[0] if errors else None,
+                             leader_error)
         if errors:
             cid, exc = errors[0]
             raise ClientLoopError(cid, exc) from exc

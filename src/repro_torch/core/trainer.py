@@ -6,8 +6,11 @@ The fused engine keeps the JAX package's layout and math:
 
   * per-client parameter banks are stacked into one tree whose leaves have
     a leading client axis C, and the privacy layer runs over that axis
-    (``banked_client_forward``: one client forward a bank, then ONE guard
-    release over the ``[C*b, ...]`` rows);
+    (``banked_client_forward``: the CNN's kernel stages as ONE banked
+    ``privacy_conv`` launch a stage a step over every bank, as the
+    reference vmaps the Pallas call, other stages and models one client
+    forward a bank; then ONE guard release over the ``[C*b, ...]`` rows;
+    under a mesh each rank runs its own clients' banks);
   * every client contributes a homogeneous per-step batch
     (``fused_client_batch``); the paper's share-weighted (7:2:1) mix is the
     per-client loss weights ``client_weights``;
@@ -16,7 +19,9 @@ The fused engine keeps the JAX package's layout and math:
     mode (the temporal split, with ``.detach()`` at the cut), the stacked
     banks and the server in ``e2e`` mode, where the gradient runs back
     through the client stage, through ``privacy_conv``'s and
-    ``dp_release``'s plain backward passes where the kernels are on;
+    ``dp_release``'s plain backward passes where the kernels are on (the
+    banked layer's once for the whole bank, through one grouped
+    convolution);
   * the global gradient clip and the optimizer act on the flat buffer, and
     the optimizer's state is flat buffers, as the JAX engine's;
   * the (ε, δ) budget advances inside the canonical state: once per epoch

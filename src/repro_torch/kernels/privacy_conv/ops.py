@@ -16,12 +16,17 @@ the CPU and named in a report. The unbanked kernel takes float32, bfloat16
 or float16 (:data:`DTYPES`; x, w, b and the noise of one type), sums in
 float32 and stores the output in x's type, as the TPU kernel does.
 
-:func:`privacy_conv_banked_forward` is the fleet's layer: N queue items of
-b images, each with its own client's bank, in one launch of the same
-kernel (the counterpart of ``jax.vmap`` over the Pallas call in
-``repro/core/protocol.py:89-101``), bit for bit what N unbanked launches
-give; its plain version is ``ref.privacy_conv_banked_ref``. It takes
-float32 alone (the fleet's releases are float32).
+:func:`privacy_conv_banked` is the banked layer: N items of b images, each
+with its own bank of stacked banks, in one launch of the same kernel (the
+counterpart of ``jax.vmap`` over the Pallas call, which is one call with one
+more grid axis), bit for bit what N unbanked launches give; its CPU path is
+``ref.privacy_conv_banked_ref``, item by item. :class:`PrivacyConvBanked`
+makes it differentiable as the vmapped ``custom_vjp``: the backward
+recomputes through ``ref.privacy_conv_grouped_ref``, one grouped
+convolution over the items, once for the whole bank. The fused engine's
+client stage runs it once a step over its clients (``models/cnn.py``
+``fleet_client_forward``); :func:`privacy_conv_banked_forward` is the
+queue fleet's forward-only view of it. It takes float32 alone.
 """
 from __future__ import annotations
 
@@ -35,7 +40,11 @@ import math
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.privacy_conv.ref import privacy_conv_banked_ref, privacy_conv_ref
+from repro_torch.kernels.privacy_conv.ref import (
+    privacy_conv_banked_ref,
+    privacy_conv_grouped_ref,
+    privacy_conv_ref,
+)
 
 launches = 0
 plans: collections.Counter = collections.Counter()
@@ -212,22 +221,23 @@ def privacy_conv_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return _launch(x, w, b, noise, noise_scale)
 
 
-def privacy_conv_banked_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                                cids: torch.Tensor, noise: Optional[torch.Tensor],
-                                noise_scale: float = 0.0) -> torch.Tensor:
-    """The fleet's layer, forward only: x [N, b, H, W, Cin], stacked banks
-    w [C, 3, 3, Cin, Cout] and b [C, Cout], ``cids`` [N] int32 (item n's
-    bank), noise [N, b, H/2, W/2, Cout] (read when ``noise_scale > 0``).
-    One banked kernel launch for a CUDA ``x``, the plain version
-    (``privacy_conv_banked_ref``) for a CPU ``x``; any other device
-    raises."""
-    if noise_scale > 0.0 and noise is None:
-        raise ValueError("noise_scale > 0 requires noise")
+def _banked_forward(x, w, b, cids, noise, noise_scale: float) -> torch.Tensor:
+    """One banked kernel launch for a CUDA ``x``, the item-by-item plain
+    version for a CPU ``x``; any other device raises."""
     if x.device.type == "cpu":
         return privacy_conv_banked_ref(x, w, b, cids, noise, noise_scale=noise_scale)
     if x.device.type != "cuda":
         raise ValueError(f"privacy_conv runs on CUDA or the CPU, not {x.device}")
     return _launch_banked(x, w, b, cids, noise, noise_scale)
+
+
+def privacy_conv_banked_forward(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                                cids: torch.Tensor, noise: Optional[torch.Tensor],
+                                noise_scale: float = 0.0) -> torch.Tensor:
+    """The queue fleet's layer, forward only: :func:`privacy_conv_banked`
+    under ``no_grad``."""
+    with torch.no_grad():
+        return privacy_conv_banked(x, w, b, cids, noise, noise_scale=noise_scale)
 
 
 class PrivacyConv(torch.autograd.Function):
@@ -264,3 +274,41 @@ def privacy_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if use_kernel:
         return PrivacyConv.apply(x, w, b, noise, noise_scale)
     return privacy_conv_ref(x, w, b, noise, noise_scale=noise_scale)
+
+
+class PrivacyConvBanked(torch.autograd.Function):
+    """The banked layer: the banked launch forward, and a backward that
+    recomputes through the grouped plain version once for the whole bank
+    (the vmapped ``custom_vjp`` of ``repro/kernels/privacy_conv/ops.py``).
+    It returns dx, dw [C, 3, 3, Cin, Cout] and db [C, Cout], each item's
+    share added into its bank, for the inputs that need them; ``cids`` and
+    the noise get none. The noise is left out of the recompute: it adds
+    after the pool, so the gradient is the same without it."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, cids, noise, noise_scale):
+        ctx.save_for_backward(x, w, b, cids)
+        return _banked_forward(x, w, b, cids, noise, noise_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, cids = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(n) for t, n in zip((x, w, b), need)]
+            y = privacy_conv_grouped_ref(*leaves, cids, None)
+            got = iter(torch.autograd.grad(y, [t for t in leaves if t.requires_grad], g))
+        return (*(next(got) if n else None for n in need), None, None, None)
+
+
+def privacy_conv_banked(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        cids: torch.Tensor, noise: Optional[torch.Tensor] = None, *,
+                        noise_scale: float = 0.0) -> torch.Tensor:
+    """The banked privacy layer, differentiable: x [N, b, H, W, Cin],
+    stacked banks w [C, 3, 3, Cin, Cout] and b [C, Cout], ``cids`` [N]
+    int32 on x's device (item n's bank), noise [N, b, H/2, W/2, Cout],
+    required when ``noise_scale > 0``. One banked launch for a CUDA ``x``
+    (:class:`PrivacyConvBanked`)."""
+    if noise_scale > 0.0 and noise is None:
+        raise ValueError("noise_scale > 0 requires noise")
+    return PrivacyConvBanked.apply(x, w, b, cids, noise, noise_scale)

@@ -8,7 +8,8 @@ package; each conv turns NHWC into PyTorch's NCHW view and back.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import functools
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -16,7 +17,7 @@ import torch.nn.functional as F
 from repro_torch.common.bridge import tree_map
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.paper_models import CNNConfig
-from repro_torch.kernels.privacy_conv.ops import privacy_conv, privacy_conv_banked_forward
+from repro_torch.kernels.privacy_conv.ops import privacy_conv, privacy_conv_banked
 from repro_torch.models.layers import add_privacy_noise, dense_init
 
 
@@ -138,31 +139,41 @@ def client_forward(params, cfg: CNNConfig, x: torch.Tensor,
     return x
 
 
-def fleet_client_forward(params, cfg: CNNConfig, cids: torch.Tensor, xs: torch.Tensor,
+@functools.lru_cache(maxsize=256)
+def _bank_index(device: torch.device, bank_of: Tuple[int, ...]) -> torch.Tensor:
+    """The item-to-bank map as the int32 index the banked launch reads, on
+    ``device``, built once a map (the fused step's is ``arange(C)`` every
+    step), so that no step copies it from the host."""
+    return torch.tensor(bank_of, dtype=torch.int32, device=device)
+
+
+def fleet_client_forward(params, cfg: CNNConfig, bank_of: Sequence[int], xs: torch.Tensor,
                          noise: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """:func:`client_forward` of N items at once, forward only: item n with
-    batch ``xs[n]`` ([N, b, H, W, C]) on bank ``cids[n]`` of the stacked
-    banks ``params["client"]`` (every leaf ``[n_banks, ...]``), ``noise``
-    [N, b, ...] of the output's shape. With ``cfg.use_kernel`` each
-    single-conv stage is ONE banked ``privacy_conv`` launch (the JAX package
-    vmaps the Pallas call over the items); other stages run the plain ops
-    item by item on their banks. Per item the bits are those of
-    :func:`client_forward`."""
+    """:func:`client_forward` of N items at once: item n with batch
+    ``xs[n]`` ([N, b, H, W, C]) on bank ``bank_of[n]`` (a host sequence) of
+    the stacked banks ``params["client"]`` (every leaf ``[n_banks, ...]``),
+    ``noise`` [N, b, ...] of the output's shape.
+
+    With ``cfg.use_kernel`` each single-conv stage is ONE banked
+    ``privacy_conv`` launch (the JAX package vmaps the Pallas call over the
+    items), differentiable through the grouped plain version; other stages
+    run the plain ops item by item on their banks. Per item the forward's
+    bits are those of :func:`client_forward`."""
     stages = params["client"]["stages"]
     scale = cfg.privacy_noise if noise is not None else 0.0
     x = xs
     for si, convs in enumerate(stages):
         last = si == len(stages) - 1
         if cfg.use_kernel and len(convs) == 1:
-            x = privacy_conv_banked_forward(
-                x, convs[0]["w"], convs[0]["b"], cids,
+            x = privacy_conv_banked(
+                x, convs[0]["w"], convs[0]["b"], _bank_index(x.device, tuple(bank_of)),
                 noise if (last and scale > 0.0) else None,
                 noise_scale=scale if last else 0.0,
             )
         else:
             x = torch.stack([_run_stage([tree_map(lambda a, c=c: a[c], cv) for cv in convs],
                                         x[n])
-                             for n, c in enumerate(cids.tolist())])
+                             for n, c in enumerate(bank_of)])
             if last:
                 x = add_privacy_noise(x, scale, noise)
     if not stages:

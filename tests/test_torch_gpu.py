@@ -354,8 +354,9 @@ def test_redesigned_kernels_refuse_what_they_do_not_take(cuda):
 def test_e2e_covid_step_kernels_against_plain(cuda, sigma):
     """One e2e training step of the full-width COVID-CT CNN (3 clients, 21
     rows each) with the kernels on against the same step with them off, on
-    the same state, batch and noise: three ``privacy_conv`` launches (one a
-    client) and one ``dp_release`` call over the 63 rows. chip_smoke.py's
+    the same state, batch and noise: one banked ``privacy_conv`` launch over
+    the three clients' 63 images and one ``dp_release`` call over the 63
+    rows. chip_smoke.py's
     training gate: the metrics within 1e-4 (float32 sums in another order
     through the trunk and its backward); the gradient (AdamW's first moment
     after one step is 0.1 x the clipped gradient) within 1e-3 in relative
@@ -380,7 +381,7 @@ def test_e2e_covid_step_kernels_against_plain(cuda, sigma):
         torch.cuda.synchronize()
         runs[on] = (new, metrics, pc_ops.launches - pc0, dp_ops.launches - dp0)
     (k_state, k_m, pc, dp), (p_state, p_m, pc_plain, dp_plain) = runs[True], runs[False]
-    assert (pc, dp, pc_plain, dp_plain) == (3, 1, 0, 0)
+    assert (pc, dp, pc_plain, dp_plain) == (1, 1, 0, 0)
     for k in p_m:
         torch.testing.assert_close(k_m[k], p_m[k], atol=1e-4, rtol=1e-4)
     k_grad, p_grad = k_state["opt"]["mu"] / 0.1, p_state["opt"]["mu"] / 0.1
@@ -408,6 +409,42 @@ def test_privacy_conv_banked_kernel(cuda, N, b, H, W, cin, cout, scale, cids, ba
     items = torch.stack([pc_ops.privacy_conv_forward(x[n], w[k], bb[k], nz[n], scale)
                          for n, k in enumerate(cids)])
     assert torch.equal(got, items)
+
+
+@pytest.mark.parametrize("N,b,H,W,cin,cout,scale,cids,banks", [
+    (3, 21, 64, 64, 1, 16, 0.05, (0, 1, 2), 3), (4, 3, 32, 32, 16, 32, 0.1, (2, 0, 1, 2), 3)])
+def test_privacy_conv_banked_backward(cuda, N, b, H, W, cin, cout, scale, cids, banks):
+    """The differentiable banked op (one launch; the backward through the
+    grouped plain version, once for the bank) against one ``PrivacyConv``
+    an item (a launch each; each backward through the unbanked plain
+    version): the forward bit for bit; dx, dw and db within 1e-3 in
+    relative L2 norm, the e2e step's gradient gate (the recomputed convs
+    sum in another order, so a max-pool decision that rounding flips can
+    move one position's share; repeated banks add their items' shares)."""
+    g = torch.Generator().manual_seed(3)
+    x, w = _randn(g, N, b, H, W, cin), _randn(g, banks, 3, 3, cin, cout, scale=0.1)
+    bb, nz = _randn(g, banks, cout, scale=0.1), _randn(g, N, b, H // 2, W // 2, cout)
+    up = _randn(g, N, b, H // 2, W // 2, cout)
+    c = torch.tensor(cids, dtype=torch.int32, device="cuda")
+
+    def run(banked):
+        xx, ww, bbb = (t.clone().requires_grad_() for t in (x, w, bb))
+        before = pc_ops.launches
+        if banked:
+            out = pc_ops.privacy_conv_banked(xx, ww, bbb, c, nz, noise_scale=scale)
+        else:
+            out = torch.stack([pc_ops.PrivacyConv.apply(xx[n], ww[k], bbb[k], nz[n], scale)
+                               for n, k in enumerate(cids)])
+        out.backward(up)
+        torch.cuda.synchronize()
+        return out.detach(), (xx.grad, ww.grad, bbb.grad), pc_ops.launches - before
+
+    (got, got_g, n_banked), (want, want_g, n_items) = run(True), run(False)
+    assert (n_banked, n_items) == (1, N)
+    assert torch.equal(got, want)
+    for name, a, ref in zip(("dx", "dw", "db"), got_g, want_g):
+        assert a.shape == ref.shape, name
+        assert float((a - ref).norm() / ref.norm()) <= 1e-3, name
 
 
 def test_privacy_conv_banked_refusals(cuda):

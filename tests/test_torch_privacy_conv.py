@@ -12,10 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.privacy_conv import ops as jax_ops
 from repro.kernels.privacy_conv.kernel import privacy_conv_pallas
 from repro.kernels.privacy_conv.ref import privacy_conv_ref as jax_privacy_conv_ref
 from repro_torch.kernels.privacy_conv import ops
-from repro_torch.kernels.privacy_conv.ref import privacy_conv_ref
+from repro_torch.kernels.privacy_conv.ref import (
+    privacy_conv_banked_ref,
+    privacy_conv_grouped_ref,
+    privacy_conv_ref,
+)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 # tests/test_kernels.py's sweep, the COVID-CT client stage at batch 2, and a
@@ -147,6 +152,88 @@ def test_banked_matches_vmapped_jax(N, b, H, W, cin, cout, scale, cids, banks):
     assert plan["banked"] and plan["blocks"] == ops.conv_plan(N * b, H, W, cin, cout)["blocks"]
     with pytest.raises(ValueError, match="requires noise"):
         ops.privacy_conv_banked_forward(*_t(x, w, bb), tc, None, 0.1)
+
+
+# the fused engine's client stage: C clients each on its own bank (cids =
+# arange(C)), narrow COVID-CT-like and a generic Cin with Cout 5
+ARANGE = [(3, 4, 16, 16, 1, 16, 0.05, (0, 1, 2), 3), (2, 3, 10, 14, 3, 5, 0.1, (0, 1), 2)]
+
+
+def _banked_inputs(seed, N, b, H, W, cin, cout, banks):
+    """x, the banks w and b, and JAX's keys with the standard-normal noise
+    ``privacy_conv`` draws from each (an item's key, its [b, H/2, W/2,
+    Cout] draw), as numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, b, H, W, cin), np.float32)
+    w = (0.1 * rng.standard_normal((banks, 3, 3, cin, cout))).astype(np.float32)
+    bb = (0.1 * rng.standard_normal((banks, cout))).astype(np.float32)
+    keys = jax.random.split(jax.random.PRNGKey(seed), N)
+    nz = np.array(jax.vmap(lambda k: jax.random.normal(
+        k, (b, H // 2, W // 2, cout), jnp.float32))(keys))
+    return x, w, bb, keys, nz
+
+
+@pytest.mark.parametrize("op", ["banked", "grouped_ref"])
+@pytest.mark.parametrize("N,b,H,W,cin,cout,scale,cids,banks", BANKED + ARANGE)
+def test_banked_op_and_vjp_match_vmapped_jax(N, b, H, W, cin, cout, scale, cids, banks, op):
+    """``privacy_conv_banked`` (and the grouped plain version its backward
+    recomputes through) forward and VJP (dx, and dw, db summed into the
+    banks) against ``jax.vjp`` of ``jax.vmap`` of the JAX package's
+    ``privacy_conv`` (``use_kernel=False``, its XLA path, which
+    tests/test_kernels.py holds against the Pallas kernel; its gradient is
+    also the kernel's ``custom_vjp`` backward) over the banks gathered by
+    ``cids``, on the same inputs and noise; the banked op's forward is bit
+    for bit the item-by-item plain version."""
+    x, w, bb, keys, nz = _banked_inputs(5, N, b, H, W, cin, cout, banks)
+    idx = jnp.asarray(cids)
+
+    def jax_fwd(xx, ww, bbb):
+        return jax.vmap(lambda xi, wi, bi, ki: jax_ops.privacy_conv(
+            xi, wi, bi, ki, noise_scale=scale, use_kernel=False))(
+            xx, jnp.take(ww, idx, 0), jnp.take(bbb, idx, 0), keys)
+
+    want, vjp = jax.vjp(jax_fwd, jnp.asarray(x), jnp.asarray(w), jnp.asarray(bb))
+    g = np.random.default_rng(6).standard_normal(want.shape, np.float32)
+    want_grads = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    tx, tw, tb = (t.requires_grad_() for t in _t(x, w, bb))
+    tc, tn = torch.tensor(cids, dtype=torch.int32), torch.from_numpy(nz)
+    before = ops.launches
+    fn = ops.privacy_conv_banked if op == "banked" else privacy_conv_grouped_ref
+    got = fn(tx, tw, tb, tc, tn, noise_scale=scale)
+    got.backward(torch.from_numpy(g))
+    assert ops.launches == before  # a CPU tensor never reaches the kernel
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    for name, t, ref in zip(("dx", "dw", "db"), (tx, tw, tb), want_grads):
+        assert t.grad.shape == t.shape, name
+        np.testing.assert_allclose(t.grad.numpy(), ref, err_msg=name, **TOL)
+    if op == "banked":
+        assert torch.equal(got.detach(), privacy_conv_banked_ref(
+            *_t(x, w, bb), tc, tn, noise_scale=scale))
+
+
+def test_banked_backward_computes_only_what_is_asked():
+    """The banked op's backward gives dw and db, not dx, where x needs no
+    gradient (the fused step's data), and none for ``cids`` or the noise;
+    the grouped plain version's forward is the item-by-item one within
+    TOL, and ``privacy_conv_banked_forward`` records no graph."""
+    N, b, H, W, cin, cout, scale, cids, banks = ARANGE[0]
+    x, w, bb, _, nz = _banked_inputs(7, N, b, H, W, cin, cout, banks)
+    tx, tn = torch.from_numpy(x), torch.from_numpy(nz).requires_grad_()
+    tw, tb = (t.requires_grad_() for t in _t(w, bb))
+    tc = torch.tensor(cids, dtype=torch.int32)
+    out = ops.privacy_conv_banked(tx, tw, tb, tc, tn, noise_scale=scale)
+    out.sum().backward()
+    assert tx.grad is None and tn.grad is None
+    assert tw.grad is not None and tb.grad is not None
+    np.testing.assert_allclose(
+        privacy_conv_grouped_ref(tx, tw, tb, tc.long(), tn, noise_scale=scale).detach().numpy(),
+        out.detach().numpy(), **TOL)
+    assert not ops.privacy_conv_banked_forward(tx, tw, tb, tc, tn, scale).requires_grad
+    with pytest.raises(ValueError, match="requires noise"):
+        ops.privacy_conv_banked(tx, tw, tb, tc, None, noise_scale=0.1)
+    with pytest.raises(ValueError, match="CUDA or the CPU"):
+        ops.privacy_conv_banked(*(t.detach().to("meta") for t in (tx, tw, tb)), tc.to("meta"),
+                                tn.detach().to("meta"), noise_scale=scale)
 
 
 @pytest.mark.parametrize("half", ["bfloat16", "float16"])

@@ -215,8 +215,7 @@ def test_fleet_release_equals_item_releases():
     fshape = (5,) + adapter.feature_shape((3, 16, 16, 1))
     mn, gn = torch.randn(fshape, generator=gen), torch.randn(fshape, generator=gen)
     stacked = tree_map(lambda *a: torch.stack(a), *banks)
-    fleet = make_fleet_release_fwd(adapter, guard)(
-        stacked, torch.tensor(cids, dtype=torch.int32), xs, mn, gn)
+    fleet = make_fleet_release_fwd(adapter, guard)(stacked, cids, xs, mn, gn)
     one = make_client_release_fwd(adapter, guard)
     for n, c in enumerate(cids):
         assert torch.equal(fleet[n], one(banks[c], xs[n], mn[n], gn[n]))

@@ -65,6 +65,13 @@ STATE_TOL = dict(rtol=0, atol=1e-4)
 # each engine that takes a mesh, as "engine|mode"
 REPLICATED = ("fused-scan|detached", "fused-scan|e2e", "fused-queue|detached",
               "protocol-async|detached")
+# a leader-only exception on the main thread: what raises it, at its third
+# call on rank 0; every rank must raise within LEADER_ERROR_S, far inside
+# the process group's timeout
+LEADER_ERROR_TARGETS = ("lead_one", "_fault_halt_check")
+# an item's step, which every rank runs: each rank raises its own error
+STEP_ERROR_TARGET = "consume"
+LEADER_ERROR_S, GROUP_TIMEOUT_S = 10.0, 60
 
 
 def n_clients_of(model):
@@ -239,6 +246,37 @@ def test_a_second_fit_continues_on_every_rank(threaded, shape):
     _assert_replays(d, key, rec, shape)
 
 
+@pytest.mark.parametrize("target", LEADER_ERROR_TARGETS)
+def test_a_leader_error_raises_on_every_rank(tmp_path, target):
+    """An exception on the leader's main thread (``lead_one`` or the quorum
+    check raising at their third call, on rank 0 alone) ends the drive on
+    both gloo ranks within ``LEADER_ERROR_S``, well inside the group's
+    ``GROUP_TIMEOUT_S``: rank 0 raises its own exception, rank 1 a
+    ``RemoteLeaderError`` carrying its ``repr``, not gloo's timeout."""
+    ranks = _spawn(tmp_path, f"leader_error:{target}", world=2)
+    leader, follower = ranks[0]["leader_error"], ranks[1]["leader_error"]
+    want = f"RuntimeError('{target} failed')"
+    assert leader["type"] == "RuntimeError" and leader["repr"] == want
+    assert follower["type"] == "RemoteLeaderError" and want in follower["message"]
+    assert follower["leader_repr"] == want
+    assert "timed out" not in follower["message"].lower()
+    for r, rec in ((0, leader), (1, follower)):
+        assert rec["raised_at"] - leader["injected_at"] < LEADER_ERROR_S, f"rank {r}: {rec}"
+
+
+def test_an_error_in_the_step_every_rank_runs_raises_on_every_rank(tmp_path):
+    """``SplitServer.consume`` raising at its third call on both ranks (the
+    same computation failing everywhere): each rank raises its own error
+    within ``LEADER_ERROR_S``, and the leader sends no end of the drive
+    that no rank would read."""
+    ranks = _spawn(tmp_path, f"leader_error:{STEP_ERROR_TARGET}", world=2)
+    want = f"RuntimeError('{STEP_ERROR_TARGET} failed')"
+    for r, res in enumerate(ranks):
+        rec = res["leader_error"]
+        assert rec["type"] == "RuntimeError" and rec["repr"] == want, f"rank {r}: {rec}"
+        assert rec["raised_at"] - rec["injected_at"] < LEADER_ERROR_S, f"rank {r}: {rec}"
+
+
 @pytest.mark.parametrize("engine", QUEUE_ENGINES)
 def test_a_client_error_raises_on_every_rank(threaded, engine):
     """A raising ``noise_fn`` on the leader's client threads: every rank
@@ -372,15 +410,54 @@ def _replicated_job(shape, rank, out_dir, result):
             np.save(os.path.join(out_dir, f"{case}_{name}.npy"), trunk_vector(s.state))
 
 
+def _leader_error_job(target, rank, result):
+    """The threaded MLP protocol-async session on a (2, 1) grid, a fault
+    plan with no faults (so the quorum check runs), ``target`` patched to
+    raise at its third call, on rank 0 (on every rank for ``consume``);
+    what each rank raised, and when."""
+    from repro_torch.core import protocol
+
+    owner = {"lead_one": protocol.LeaderRelay, "consume": SplitServer}.get(target, protocol)
+    original, calls, rec = getattr(owner, target), [0], {}
+
+    def failing(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] == 3:
+            rec["injected_at"] = time.time()
+            raise RuntimeError(f"{target} failed")
+        return original(*args, **kwargs)
+
+    if rank == 0 or target == STEP_ERROR_TARGET:
+        setattr(owner, target, failing)
+    s = threaded_session("mlp", "protocol-async", cpu_grid(2, 1))
+    try:
+        s.fit(shards_of("mlp", 8), epochs=EPOCHS, steps_per_epoch=STEPS,
+              faults=FaultPlan(n_clients=8, seed=0))
+    except Exception as e:  # recorded for the test to judge
+        rec.update(raised_at=time.time(), type=type(e).__name__, repr=repr(e),
+                   message=str(e), leader_repr=getattr(e, "leader_repr", None))
+    else:
+        raise AssertionError(f"rank {rank}: the leader's {target} error did not surface")
+    finally:
+        setattr(owner, target, original)
+    result["leader_error"] = rec
+
+
 def _rank_main(job: str, rank: int, world: int, out_dir: str) -> None:
+    import datetime
+
     import torch.distributed as dist
 
     torch.set_num_threads(1)
+    timeout = {"timeout": datetime.timedelta(seconds=GROUP_TIMEOUT_S)} \
+        if job.startswith("leader_error:") else {}
     dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out_dir, "store"), world),
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world, **timeout)
     result = {}
     if job == "threaded":
         _threaded_job(rank, out_dir, result)
+    elif job.startswith("leader_error:"):
+        _leader_error_job(job.split(":", 1)[1], rank, result)
     elif job.startswith("replicated:"):
         shape = tuple(int(v) for v in job.split(":", 1)[1].split("x"))
         _replicated_job(shape, rank, out_dir, result)

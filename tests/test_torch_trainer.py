@@ -324,3 +324,48 @@ def test_sample_plan_draws_within_lens():
     off = tt.make_sample_plan(t_adapter, tt.SplitTrainConfig(server_batch=12), 2)(
         lens, (16, 16, 1), torch.Generator().manual_seed(0), "cpu")
     assert off.guard_noise is None  # no guard, no guard noise
+
+
+# (client stages, cut): the narrow CNN's one kernel stage, and two
+# single-conv stages on the client, each a kernel stage
+KERNEL_STAGES = {1: SMALL, 2: dict(SMALL, stages=((4, 1), (8, 1), (8, 1)), cut_layers=2)}
+
+
+@pytest.mark.parametrize("stages", list(KERNEL_STAGES))
+@pytest.mark.parametrize("mode", ["e2e", "detached"])
+def test_fused_cnn_step_calls_the_banked_op_once_a_kernel_stage(monkeypatch, stages, mode):
+    """The fused engine's CNN step runs each single-conv kernel stage as ONE
+    call of the banked op over every client (the reference's vmapped
+    ``privacy_conv``), never the unbanked op a client; the gradient reaches
+    every bank in e2e mode."""
+    from repro_torch.models import cnn as cnn_mod
+
+    calls = {"banked": [], "unbanked": 0}
+    banked, unbanked = cnn_mod.privacy_conv_banked, cnn_mod.privacy_conv
+
+    def counting_banked(x, *args, **kwargs):
+        calls["banked"].append(tuple(x.shape))
+        return banked(x, *args, **kwargs)
+
+    def counting_unbanked(*args, **kwargs):
+        calls["unbanked"] += 1
+        return unbanked(*args, **kwargs)
+
+    monkeypatch.setattr(cnn_mod, "privacy_conv_banked", counting_banked)
+    monkeypatch.setattr(cnn_mod, "privacy_conv", counting_unbanked)
+    adapter = cnn_adapter(dataclasses.replace(T_COVID, **KERNEL_STAGES[stages], use_kernel=True))
+    shards = split_clients(*make_covid_ct(60, hw=16, seed=0), shares=SHARES)
+    _, ttc = _configs(mode, 1)
+    init, run = tt.make_epoch_runner(adapter, ttc, adamw(1e-2), T, device="cpu")
+    state = init(torch.Generator().manual_seed(0))
+    data_x, data_y, lens = tt.device_put_shards(shards, "cpu")
+    plan = tt.make_sample_plan(adapter, ttc, T)(lens, tuple(data_x.shape[2:]),
+                                                torch.Generator().manual_seed(1), "cpu")
+    new, metrics = run(state, data_x, data_y, plan)
+    assert calls["unbanked"] == 0
+    assert len(calls["banked"]) == T * stages
+    assert all(shape[:2] == (3, 4) for shape in calls["banked"])  # C clients, b rows
+    assert np.isfinite(metrics["loss"].numpy()).all()
+    moved = [not torch.equal(a, b) for a, b in zip(tree_leaves(new["client_banks"]),
+                                                    tree_leaves(state["client_banks"]))]
+    assert all(moved) if mode == "e2e" else not any(moved)
