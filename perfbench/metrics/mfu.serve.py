@@ -1,0 +1,11 @@
+"""The whole serving step's share of the card's float32 peak: forward
+operations of every answered row (client stage and trunk; padded slots
+not counted), over the traced window's time, over 67 TFLOP/s."""
+from perfbench import work
+
+
+def read(ctx):
+    flops = ctx.counts.get("model_flops", 0)
+    if not flops or ctx.window_s <= 0:
+        return None
+    return 100.0 * flops / ctx.window_s / work.PEAK_F32_FLOPS_PER_S
