@@ -73,6 +73,7 @@ import torch
 
 from repro_torch.checkpoint.io import load_checkpoint, save_checkpoint
 from repro_torch.common.device import resolve_device, seeded_generator
+from repro_torch.common.tracing import span
 from repro_torch.common.tree import ravel, tree_map
 from repro_torch.core import fedavg as fedavg_mod
 from repro_torch.core import protocol as protocol_mod
@@ -177,8 +178,9 @@ class _Engine:
             plan = self._plans[steps_per_epoch] = make_sample_plan(
                 self.adapter, self.tc, steps_per_epoch)
         self._epochs_done += 1
-        return plan(lens, sample_shape, seeded_generator(self._seed, self._epochs_done),
-                    self.device)
+        with span("fit.plan"):
+            return plan(lens, sample_shape, seeded_generator(self._seed, self._epochs_done),
+                        self.device)
 
 
 def check_unroll(unroll) -> int:
@@ -219,13 +221,15 @@ class FusedEngine(_Engine):
             _, run_epoch = make_epoch_runner(self.adapter, self.tc, self.opt, steps_per_epoch,
                                              mode=self.mode, device=self.device, mesh=self.mesh)
             self._runners[steps_per_epoch] = run_epoch
-        data_x, data_y, lens = device_put_shards(shards, self.device)
+        with span("fit.shards"):
+            data_x, data_y, lens = device_put_shards(shards, self.device)
         sample_shape = data_x.shape[2:]
         history, self.step_metrics = [], []
         for ep in range(epochs):
             plan = self._next_plan(steps_per_epoch, lens, sample_shape)
             state, ms = run_epoch(state, data_x, data_y, plan)
-            self.step_metrics.append(_readout(ms))  # one readout an epoch
+            with span("fit.readout"):
+                self.step_metrics.append(_readout(ms))  # one readout an epoch
             history.append(_record(ep, self.step_metrics[-1], eval_fn, state))
         return state, history
 
@@ -1005,17 +1009,21 @@ class SplitSession:
         client's releases. Returns the ``ServeReport``."""
         from repro_torch.serving.server import SplitInferenceServer
 
-        server = SplitInferenceServer(self.adapter, self.state, guard=self.guard,
-                                      seed=self.seed, device=self.device,
-                                      mesh=getattr(self.engine, "mesh", None), **server_options)
+        with span("serve.build"):
+            server = SplitInferenceServer(self.adapter, self.state, guard=self.guard,
+                                          seed=self.seed, device=self.device,
+                                          mesh=getattr(self.engine, "mesh", None),
+                                          **server_options)
         report = server.serve(trace, shards)
         released = max(report.releases_per_client, default=0)
-        if self.guard.enabled and released:
-            canonical = self.state
-            self._native = self.engine.from_canonical({
-                **canonical,
-                "privacy": budget_advance(canonical["privacy"], self.config.privacy, released),
-            })
+        with span("serve.close"):
+            if self.guard.enabled and released:
+                canonical = self.state
+                self._native = self.engine.from_canonical({
+                    **canonical,
+                    "privacy": budget_advance(canonical["privacy"], self.config.privacy,
+                                              released),
+                })
         return report
 
     def privacy_report(self, delta_prime: float = 1e-6) -> Dict[str, Any]:

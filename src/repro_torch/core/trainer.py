@@ -32,7 +32,10 @@ Randomness is an input, as in the JAX engine's scan path: a
 and guard noise, drawn by ``make_sample_plan`` from one ``torch.Generator``
 (or fed from the JAX package by a test), and ``run_epoch`` never draws.
 Both epoch modes run the same Python loop of steps; they differ only in
-when the budget advances.
+when the budget advances. For a profiler that records, the plan marks its
+draws and its copy (spans ``fit.plan.draw``, ``fit.plan.copy``), the epoch
+each step (``fit.step``) and the step its forward, backward and update
+(``fit.forward``, ``fit.backward``, ``fit.update``); ``common.tracing``.
 
 ``make_looped_step`` is the seed's per-client Python loop (concatenated
 per-client batches, an unweighted loss, tree-shaped optimizer state), the
@@ -53,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.common.tracing import span
 from repro_torch.common.tree import ravel, tree_leaves, tree_map
 from repro_torch.launch.mesh import axis_names, mesh_device_type, mesh_shape
 from repro_torch.core.adapters import (
@@ -324,14 +328,16 @@ def make_sample_plan(adapter: SplitAdapter, tc: SplitTrainConfig, steps_per_epoc
     def sample_plan(lens, sample_shape, generator: torch.Generator, device=None) -> SamplePlan:
         device = resolve_device(device)
         gdev = generator.device
-        idx = torch.stack([
-            torch.randint(0, int(n), (t, b), generator=generator, device=gdev)
-            for n in torch.as_tensor(lens).tolist()], dim=1)
-        feat = (t, c) + tuple(adapter.feature_shape((b,) + tuple(sample_shape)))
-        draw = lambda: torch.randn(feat, generator=generator, device=gdev)
-        model = draw() if adapter.noise_scale > 0.0 else None
-        guard_noise = draw() if guard.sigma > 0.0 else None
-        return SamplePlan(idx, model, guard_noise).to(device)
+        with span("fit.plan.draw"):
+            idx = torch.stack([
+                torch.randint(0, int(n), (t, b), generator=generator, device=gdev)
+                for n in torch.as_tensor(lens).tolist()], dim=1)
+            feat = (t, c) + tuple(adapter.feature_shape((b,) + tuple(sample_shape)))
+            draw = lambda: torch.randn(feat, generator=generator, device=gdev)
+            model = draw() if adapter.noise_scale > 0.0 else None
+            guard_noise = draw() if guard.sigma > 0.0 else None
+        with span("fit.plan.copy"):
+            return SamplePlan(idx, model, guard_noise).to(device)
 
     return sample_plan
 
@@ -411,13 +417,15 @@ def _make_fused(adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, dev
         and clip and update are whole-buffer ops."""
         fl = flat.detach().requires_grad_(True)
         with torch.enable_grad():
-            if detached:
-                loss, out = loss_from(banks, unravel(fl), xs, ys, model_noise, guard_noise)
-            else:
-                cb, sp = unravel(fl)
-                loss, out = loss_from(cb, sp, xs, ys, model_noise, guard_noise)
-            (grads,) = torch.autograd.grad(loss, fl)
-        with torch.no_grad():
+            with span("fit.forward"):
+                if detached:
+                    loss, out = loss_from(banks, unravel(fl), xs, ys, model_noise, guard_noise)
+                else:
+                    cb, sp = unravel(fl)
+                    loss, out = loss_from(cb, sp, xs, ys, model_noise, guard_noise)
+            with span("fit.backward"):
+                (grads,) = torch.autograd.grad(loss, fl)
+        with torch.no_grad(), span("fit.update"):
             if mesh is not None:
                 complete_grads_(grads, unravel)
             gnorm = torch.sqrt(torch.sum(torch.square(grads)))
@@ -642,17 +650,18 @@ def make_epoch_runner(
         rows = torch.arange(tc.n_clients, device=data_x.device)[:, None]
         ms = []
         for t in range(steps_per_epoch):
-            idx_t = plan.idx[t]
-            flat, opt_state, m = step_flat(
-                flat, opt_state, step, banks, unravel,
-                data_x[rows, idx_t], data_y[rows, idx_t],
-                None if plan.model_noise is None else plan.model_noise[t],
-                None if plan.guard_noise is None else plan.guard_noise[t],
-            )
-            step = step + 1
-            if mode == "stepwise":
-                priv = budget_advance(priv, tc.privacy)
-            ms.append(m)
+            with span("fit.step"):
+                idx_t = plan.idx[t]
+                flat, opt_state, m = step_flat(
+                    flat, opt_state, step, banks, unravel,
+                    data_x[rows, idx_t], data_y[rows, idx_t],
+                    None if plan.model_noise is None else plan.model_noise[t],
+                    None if plan.guard_noise is None else plan.guard_noise[t],
+                )
+                step = step + 1
+                if mode == "stepwise":
+                    priv = budget_advance(priv, tc.privacy)
+                ms.append(m)
         if mode == "scan":
             priv = budget_advance(priv, tc.privacy, steps_per_epoch)
         new_state = {**with_trainable(state, unravel(flat), opt_state),

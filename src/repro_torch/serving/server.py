@@ -13,7 +13,10 @@ arrivals for that tick, sheds queue items older than ``max_wait`` cycles,
 dispatches one batch, then advances. No threads, so the whole request
 lifecycle is a pure function of ``(state, trace, knobs, noise)`` and
 replays bit for bit. Wall-clock latencies are measured beside it and carry
-no semantics.
+no semantics. Spans (``common.tracing.span``) mark the call's opening, each
+cycle, a study's admission (rows, noise, release, push), the batch's
+assembly, the trunk's launch and the readback, for a profiler that records;
+with none recording they cost a flag read each.
 
 Noise: the JAX server folds each release's key out of ``(root, step,
 client, release)``. Here each client owns one ``torch.Generator`` on the
@@ -38,6 +41,7 @@ import torch
 
 from repro_torch.common.bridge import to_torch, tree_map
 from repro_torch.common.device import resolve_device
+from repro_torch.common.tracing import span
 from repro_torch.core.adapters import SplitAdapter
 from repro_torch.core.protocol import _pop_with_backoff, make_client_release_fwd
 from repro_torch.core.queue import FeatureQueue
@@ -73,7 +77,14 @@ def make_server_batch_forward(adapter: SplitAdapter, mesh=None):
 class ServeReport:
     """One trace's serving outcome. Everything except the ``*_ms`` /
     ``wall_s`` fields is deterministic given (state, trace, knobs, noise);
-    :meth:`fingerprint` is the replay digest."""
+    :meth:`fingerprint` is the replay digest.
+
+    The wall-clock stamps of every answered request, in milliseconds by
+    request id: ``latency_ms`` from its push into the queue (after its
+    release was dispatched) to its answer; ``arrival_latency_ms`` from the
+    start of its arrival cycle to its answer; ``queue_ms`` from the push to
+    its pop into a batch. So ``arrival_latency_ms >= latency_ms >=
+    queue_ms >= 0``."""
 
     trace_kind: str
     trace_seed: int
@@ -92,19 +103,12 @@ class ServeReport:
     per_client: List[Dict[str, int]] = dataclasses.field(default_factory=list)
     latency_cycles: Dict[int, int] = dataclasses.field(default_factory=dict)
     latency_ms: Dict[int, float] = dataclasses.field(default_factory=dict)
+    arrival_latency_ms: Dict[int, float] = dataclasses.field(default_factory=dict)
+    queue_ms: Dict[int, float] = dataclasses.field(default_factory=dict)
     responses: Optional[Dict[int, np.ndarray]] = None
     features: Optional[Dict[int, np.ndarray]] = None
     queue_stats: Dict[str, int] = dataclasses.field(default_factory=dict)
     wall_s: float = 0.0
-
-    @property
-    def mean_batch_fill(self) -> float:
-        """Mean items per dispatched batch (batching efficiency)."""
-        return self.batched_items / self.batches if self.batches else 0.0
-
-    @property
-    def throughput_rps(self) -> float:
-        return self.answered / self.wall_s if self.wall_s > 0 else 0.0
 
     def latency_percentiles(self, qs: Sequence[int] = (50, 99)) -> Dict[str, float]:
         """``{"p50_cycles", "p99_cycles", "p50_ms", "p99_ms", ...}`` over
@@ -256,12 +260,13 @@ class SplitInferenceServer:
                 f"{self.n_clients} banks")
         if len(shards) != self.n_clients:
             raise ValueError(f"{len(shards)} shards for {self.n_clients} clients")
-        xs = [torch.as_tensor(np.asarray(x), device=self.device) for x, _ in shards]
-        rngs = [np.random.default_rng((trace.seed, _SAMPLE_RNG_TAG, c))
-                for c in range(self.n_clients)]
-        gens = self._generators() if self.noise_fn is None else None
-        queue = FeatureQueue(max_size=self.queue_size,
-                             per_client_cap=self.per_client_cap)
+        with span("serve.open"):
+            xs = [torch.as_tensor(np.asarray(x), device=self.device) for x, _ in shards]
+            rngs = [np.random.default_rng((trace.seed, _SAMPLE_RNG_TAG, c))
+                    for c in range(self.n_clients)]
+            gens = self._generators() if self.noise_fn is None else None
+            queue = FeatureQueue(max_size=self.queue_size,
+                                 per_client_cap=self.per_client_cap)
         report = ServeReport(trace_kind=trace.kind, trace_seed=trace.seed)
         report.per_client = [
             {"offered": 0, "accepted": 0, "answered": 0, "dropped": 0, "shed": 0}
@@ -271,7 +276,8 @@ class SplitInferenceServer:
         inflight = [0] * self.n_clients
         max_inflight = [0] * self.n_clients
         admitted_cycle: Dict[int, int] = {}
-        admitted_wall: Dict[int, float] = {}
+        admitted_wall: Dict[int, float] = {}  # the push
+        cycle_wall: List[float] = []  # each cycle's start
         responses: Dict[int, np.ndarray] = {}
         if self.record_features:
             report.features = {}
@@ -279,68 +285,81 @@ class SplitInferenceServer:
         t = 0
         t0 = time.perf_counter()
         while t < trace.horizon or len(queue) > 0:
-            # ---- admissions: this cycle's arrivals release + push
-            for req in arrivals.get(t, ()):
-                c = req.client_id
-                report.offered += 1
-                report.per_client[c]["offered"] += 1
-                idx = rngs[c].integers(0, len(xs[c]), size=self.request_batch)
-                releases[c] += 1  # budget spent whether or not the push lands
-                x = xs[c][torch.as_tensor(idx, device=self.device)]
-                model_noise, guard_noise = self._noise(
-                    gens, c, releases[c], self.adapter.feature_shape(tuple(x.shape)))
-                feats = self._client_fwd(self.banks[c], x, model_noise, guard_noise)
-                if self.record_features:
-                    report.features[req.req_id] = feats.cpu().numpy()
-                if queue.push(c, feats, req.req_id):
-                    report.accepted += 1
-                    report.per_client[c]["accepted"] += 1
-                    admitted_cycle[req.req_id] = t
-                    admitted_wall[req.req_id] = time.perf_counter()
-                    inflight[c] += 1
-                    max_inflight[c] = max(max_inflight[c], inflight[c])
-                else:
-                    report.dropped += 1
-                    report.per_client[c]["dropped"] += 1
-                    if len(queue) >= self.queue_size:
-                        report.dropped_full += 1
-                    else:  # room in the queue: the per-client cap rejected
-                        report.dropped_cap += 1
-            # ---- one consumer cycle: batch up to max_batch ready requests,
-            # shedding anything that aged past the deadline on the way
-            batch: List[Tuple[int, torch.Tensor, int]] = []
-            while len(batch) < self.max_batch:
-                item = _pop_with_backoff(queue, 0.0, self.pop_retries,
-                                         self.pop_backoff)
-                if item is None:
-                    break
-                cid, feats, rid = item
-                inflight[cid] -= 1
-                if (self.max_wait is not None
-                        and t - admitted_cycle[rid] > self.max_wait):
-                    report.shed += 1
-                    report.per_client[cid]["shed"] += 1
-                    admitted_cycle.pop(rid), admitted_wall.pop(rid)
-                    continue
-                batch.append((cid, feats, rid))
-            if batch:
-                k = len(batch)
-                feats = torch.stack([f for _, f, _ in batch])
-                if k < self.max_batch:  # pad to max_batch slots
-                    feats = torch.cat([feats, feats.new_zeros(
-                        (self.max_batch - k,) + tuple(feats.shape[1:]))])
-                outs = self._batch_fwd(self.server_params, feats).cpu().numpy()
-                now = time.perf_counter()
-                for i, (cid, _, rid) in enumerate(batch):
-                    if rid in responses:
-                        raise RuntimeError(f"request {rid} answered twice")
-                    responses[rid] = outs[i]
-                    report.answered += 1
-                    report.per_client[cid]["answered"] += 1
-                    report.latency_cycles[rid] = t - admitted_cycle.pop(rid)
-                    report.latency_ms[rid] = (now - admitted_wall.pop(rid)) * 1e3
-                report.batches += 1
-                report.batched_items += k
+            with span("serve.cycle"):
+                cycle_wall.append(time.perf_counter())
+                # ---- admissions: this cycle's arrivals release + push
+                for req in arrivals.get(t, ()):
+                    with span("serve.admit"):
+                        c = req.client_id
+                        report.offered += 1
+                        report.per_client[c]["offered"] += 1
+                        idx = rngs[c].integers(0, len(xs[c]), size=self.request_batch)
+                        releases[c] += 1  # budget spent whether or not the push lands
+                        x = xs[c][torch.as_tensor(idx, device=self.device)]
+                        model_noise, guard_noise = self._noise(
+                            gens, c, releases[c], self.adapter.feature_shape(tuple(x.shape)))
+                        feats = self._client_fwd(self.banks[c], x, model_noise, guard_noise)
+                        if self.record_features:
+                            report.features[req.req_id] = feats.cpu().numpy()
+                        if queue.push(c, feats, req.req_id):
+                            report.accepted += 1
+                            report.per_client[c]["accepted"] += 1
+                            admitted_cycle[req.req_id] = t
+                            admitted_wall[req.req_id] = time.perf_counter()
+                            inflight[c] += 1
+                            max_inflight[c] = max(max_inflight[c], inflight[c])
+                        else:
+                            report.dropped += 1
+                            report.per_client[c]["dropped"] += 1
+                            if len(queue) >= self.queue_size:
+                                report.dropped_full += 1
+                            else:  # room in the queue: the per-client cap rejected
+                                report.dropped_cap += 1
+                # ---- one consumer cycle: batch up to max_batch ready requests,
+                # shedding anything that aged past the deadline on the way
+                with span("serve.batch"):
+                    batch: List[Tuple[int, torch.Tensor, int, float]] = []
+                    while len(batch) < self.max_batch:
+                        item = _pop_with_backoff(queue, 0.0, self.pop_retries,
+                                                 self.pop_backoff)
+                        if item is None:
+                            break
+                        popped = time.perf_counter()
+                        cid, feats, rid = item
+                        inflight[cid] -= 1
+                        if (self.max_wait is not None
+                                and t - admitted_cycle[rid] > self.max_wait):
+                            report.shed += 1
+                            report.per_client[cid]["shed"] += 1
+                            admitted_cycle.pop(rid), admitted_wall.pop(rid)
+                            continue
+                        batch.append((cid, feats, rid, popped))
+                    if batch:
+                        k = len(batch)
+                        feats = torch.stack([f for _, f, _, _ in batch])
+                        if k < self.max_batch:  # pad to max_batch slots
+                            feats = torch.cat([feats, feats.new_zeros(
+                                (self.max_batch - k,) + tuple(feats.shape[1:]))])
+                if batch:
+                    with span("serve.trunk"):
+                        outs = self._batch_fwd(self.server_params, feats)
+                    with span("serve.readback"):
+                        outs = outs.cpu().numpy()  # the host waits for the device here
+                        now = time.perf_counter()
+                        for i, (cid, _, rid, popped) in enumerate(batch):
+                            if rid in responses:
+                                raise RuntimeError(f"request {rid} answered twice")
+                            responses[rid] = outs[i]
+                            report.answered += 1
+                            report.per_client[cid]["answered"] += 1
+                            arrived = admitted_cycle.pop(rid)
+                            report.latency_cycles[rid] = t - arrived
+                            pushed = admitted_wall.pop(rid)
+                            report.latency_ms[rid] = (now - pushed) * 1e3
+                            report.arrival_latency_ms[rid] = (now - cycle_wall[arrived]) * 1e3
+                            report.queue_ms[rid] = (popped - pushed) * 1e3
+                        report.batches += 1
+                        report.batched_items += k
             t += 1
         report.wall_s = time.perf_counter() - t0
         report.cycles = t
