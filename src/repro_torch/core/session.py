@@ -56,7 +56,16 @@ initial weights, ``(seed, e)`` for the plan of the session's e-th epoch
 device, so one seed gives the same weights, batches and noise on the card
 and on the CPU (the runs then part by float32 rounding, which AdamW
 amplifies), and ``restore`` resumes the epoch count, so the schedule
-continues instead of replaying. ``SplitSession.state`` is a copy where the
+continues instead of replaying. Where the plan crosses to another device
+(a session on the card), the plans of the next epochs are drawn ahead, across
+``fit`` calls, on a few host worker threads into pinned memory
+(``trainer.PlanPipeline``), each from its own ``(seed, e)`` generator, so
+with the same bits, and copied without blocking when their epoch comes.
+Queued plans are dropped when they no longer lie ahead: other shards,
+another ``steps_per_epoch``, ``init`` or a ``restore`` that moves the
+epoch count elsewhere. The engine counts the plans taken ready
+(``plans_ready``), waited for (``plans_waited``) and drawn on the step's
+own thread (``plans_inline``). ``SplitSession.state`` is a copy where the
 engine updates its state in place (``llm-split``).
 
     session = SplitSession(adapter, SplitTrainConfig(...), adamw(1e-3))
@@ -66,6 +75,8 @@ engine updates its state in place (``llm-split``).
 """
 from __future__ import annotations
 
+import functools
+from concurrent.futures import wait
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -91,6 +102,7 @@ from repro_torch.core.faults import ClientLoopError, FaultPlan
 from repro_torch.core.queue import FeatureBank, FeatureQueue
 from repro_torch.core.trainer import (
     CLIENT_AXIS,
+    PlanPipeline,
     SamplePlan,
     SplitTrainConfig,
     _client_banks_list,
@@ -106,6 +118,7 @@ from repro_torch.core.trainer import (
     make_server_bank_runner,
     make_server_step,
     make_spatio_temporal_step,
+    plans_cross,
     stack_pytrees,
     unstack_pytree,
 )
@@ -154,33 +167,70 @@ def _record(ep: int, per_step: Dict[str, np.ndarray], eval_fn: EvalFn, canonical
     return rec
 
 
+def _draw_ahead(planner, seed: int, lens, sample_shape, epoch: int) -> SamplePlan:
+    """Epoch ``epoch``'s plan on the host, in pinned memory: a worker's draw
+    (it holds no engine)."""
+    return planner.draw(lens, sample_shape, seeded_generator(seed, epoch), pin=True)
+
+
 class _Engine:
     """What the two engines share: the epoch count behind the plan's
     generators, the plan and ``step_metrics``, each epoch's per-step
     metrics of the last ``run`` (``{metric: [T]}``, the port's addition:
-    the reference's history keeps epoch means only)."""
+    the reference's history keeps epoch means only).
+
+    Where the plan crosses to another device (``plans_cross``), the plans of
+    the epochs ahead are drawn on host worker threads (``PlanPipeline``),
+    across ``fit`` calls; ``plans_ready``, ``plans_waited`` and
+    ``plans_inline`` count the plans taken already drawn, taken after
+    waiting on a worker, and drawn on the step's thread."""
 
     def __init__(self, adapter: SplitAdapter, tc: SplitTrainConfig, opt: Optimizer, device):
         self.adapter, self.tc, self.opt = adapter, tc, opt
         self.device = resolve_device(device)
         self._plans: Dict[int, Callable[..., SamplePlan]] = {}
+        self._pipeline = PlanPipeline()
         self._epochs_done = 0
+        self.plans_ready = self.plans_waited = self.plans_inline = 0
         self.step_metrics: List[Dict[str, np.ndarray]] = []
 
     def _start(self, seed: int):
         self._seed = seed
         self._epochs_done = 0
+        self._pipeline.clear()
         return seeded_generator(seed)
 
     def _next_plan(self, steps_per_epoch: int, lens, sample_shape) -> SamplePlan:
-        plan = self._plans.get(steps_per_epoch)
-        if plan is None:
-            plan = self._plans[steps_per_epoch] = make_sample_plan(
+        """The next epoch's plan on the engine's device; ``lens`` are the
+        shards' lengths as host ints."""
+        planner = self._plans.get(steps_per_epoch)
+        if planner is None:
+            planner = self._plans[steps_per_epoch] = make_sample_plan(
                 self.adapter, self.tc, steps_per_epoch)
-        self._epochs_done += 1
+        seed, epoch = self._seed, self._epochs_done + 1
+        lens, sample_shape = tuple(int(n) for n in lens), tuple(sample_shape)
+        key = (seed, steps_per_epoch, lens, sample_shape)
+        crosses = plans_cross(self.device)
         with span("fit.plan"):
-            return plan(lens, sample_shape, seeded_generator(self._seed, self._epochs_done),
-                        self.device)
+            pending = self._pipeline.take(key, epoch) if crosses else None
+            if pending is None:
+                self.plans_inline += 1
+                plan = planner(lens, sample_shape, seeded_generator(seed, epoch), self.device)
+            else:
+                if pending.done():
+                    self.plans_ready += 1
+                else:
+                    self.plans_waited += 1
+                    with span("fit.plan.wait"):
+                        wait([pending])
+                host = pending.result()  # a worker's exception is raised here
+                with span("fit.plan.copy"):
+                    plan = host.to(self.device, non_blocking=True)
+            if crosses:
+                self._pipeline.ahead(key, epoch, functools.partial(
+                    _draw_ahead, planner, seed, lens, sample_shape), plan.nbytes)
+        self._epochs_done = epoch
+        return plan
 
 
 def check_unroll(unroll) -> int:
@@ -222,8 +272,8 @@ class FusedEngine(_Engine):
                                              mode=self.mode, device=self.device, mesh=self.mesh)
             self._runners[steps_per_epoch] = run_epoch
         with span("fit.shards"):
-            data_x, data_y, lens = device_put_shards(shards, self.device)
-        sample_shape = data_x.shape[2:]
+            data_x, data_y, _ = device_put_shards(shards, self.device)
+        lens, sample_shape = [len(x) for x, _ in shards], data_x.shape[2:]
         history, self.step_metrics = [], []
         for ep in range(epochs):
             plan = self._next_plan(steps_per_epoch, lens, sample_shape)
@@ -271,7 +321,8 @@ class LoopedEngine(_Engine):
         return self._init_state(self._start(seed))
 
     def run(self, state, shards, *, epochs, steps_per_epoch, eval_fn=None):
-        data_x, data_y, lens = device_put_shards(shards, self.device)
+        data_x, data_y, _ = device_put_shards(shards, self.device)
+        lens = [len(x) for x, _ in shards]
         history, self.step_metrics = [], []
         for ep in range(epochs):
             plan = self._next_plan(steps_per_epoch, lens, data_x.shape[2:])
@@ -838,8 +889,8 @@ class LLMSplitEngine(_Engine):
     def run(self, state, shards, *, epochs, steps_per_epoch, eval_fn=None):
         if len(shards) != self.tc.n_clients:
             raise ValueError(f"{len(shards)} shards for n_clients={self.tc.n_clients}")
-        data_x, data_y, lens = device_put_shards(shards, self.device)
-        sample_shape = data_x.shape[2:]
+        data_x, data_y, _ = device_put_shards(shards, self.device)
+        lens, sample_shape = [len(x) for x, _ in shards], data_x.shape[2:]
         rows = torch.arange(self.tc.n_clients, device=self.device)[:, None]
         banks, flat, opt_state = state["client_banks"], state["flat"], state["opt"]
         history, self.step_metrics = [], []

@@ -32,10 +32,14 @@ Randomness is an input, as in the JAX engine's scan path: a
 and guard noise, drawn by ``make_sample_plan`` from one ``torch.Generator``
 (or fed from the JAX package by a test), and ``run_epoch`` never draws.
 Both epoch modes run the same Python loop of steps; they differ only in
-when the budget advances. For a profiler that records, the plan marks its
-draws and its copy (spans ``fit.plan.draw``, ``fit.plan.copy``), the epoch
-each step (``fit.step``) and the step its forward, backward and update
-(``fit.forward``, ``fit.backward``, ``fit.update``); ``common.tracing``.
+when the budget advances. Where the plan crosses from the host to another
+device, the session's engines draw the plans of the epochs ahead on host
+worker threads into pinned memory (:class:`PlanPipeline`), with the same
+generators and so the same bits. For a profiler that records, the plan
+marks its draws and its copy (spans ``fit.plan.draw``, ``fit.plan.copy``),
+the epoch each step (``fit.step``) and the step its forward, backward and
+update (``fit.forward``, ``fit.backward``, ``fit.update``);
+``common.tracing``.
 
 ``make_looped_step`` is the seed's per-client Python loop (concatenated
 per-client batches, an unweighted loss, tree-shaped optimizer state), the
@@ -49,7 +53,10 @@ arrivals, a loop over the slots that calls the same step.
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
+import weakref
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -310,9 +317,25 @@ class SamplePlan:
     model_noise: Optional[torch.Tensor] = None
     guard_noise: Optional[torch.Tensor] = None
 
-    def to(self, device) -> "SamplePlan":
-        move = lambda t: None if t is None else t.to(device)
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size()
+                   for t in (self.idx, self.model_noise, self.guard_noise) if t is not None)
+
+    def to(self, device, non_blocking: bool = False) -> "SamplePlan":
+        move = lambda t: None if t is None else t.to(device, non_blocking=non_blocking)
         return SamplePlan(move(self.idx), move(self.model_noise), move(self.guard_noise))
+
+
+def _host_empty(shape, dtype, pin: bool) -> torch.Tensor:
+    """An empty host tensor, in pinned memory where ``pin`` asks for it and
+    it can be had (else pageable: the draws into it give the same bits)."""
+    if pin:
+        try:
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        except RuntimeError:  # no pinned allocator, or no pinned memory left
+            pass
+    return torch.empty(shape, dtype=dtype)
 
 
 def make_sample_plan(adapter: SplitAdapter, tc: SplitTrainConfig, steps_per_epoch: int):
@@ -321,25 +344,113 @@ def make_sample_plan(adapter: SplitAdapter, tc: SplitTrainConfig, steps_per_epoc
     on the generator's device in a fixed order (each client's indices, then
     the model noise, then the guard noise) and moved to ``device``
     (``None``: the card). ``sample_shape`` is one input sample's shape. A
-    CPU generator gives the same plan whatever ``device`` is."""
+    CPU generator gives the same plan whatever ``device`` is.
+    ``sample_plan.draw(lens, sample_shape, generator, pin=False)`` is the
+    draw alone, on the generator's device; ``pin`` draws a CPU generator's
+    plan into pinned host memory (the same bits; pageable where pinned
+    memory cannot be had)."""
     c, b, t = tc.n_clients, fused_client_batch(tc), steps_per_epoch
     guard = PrivacyGuard(tc.privacy)
 
-    def sample_plan(lens, sample_shape, generator: torch.Generator, device=None) -> SamplePlan:
-        device = resolve_device(device)
+    def draw(lens, sample_shape, generator: torch.Generator, pin: bool = False) -> SamplePlan:
         gdev = generator.device
+        pin = pin and gdev.type == "cpu"
         with span("fit.plan.draw"):
             idx = torch.stack([
                 torch.randint(0, int(n), (t, b), generator=generator, device=gdev)
                 for n in torch.as_tensor(lens).tolist()], dim=1)
+            if pin:
+                idx = _host_empty(idx.shape, idx.dtype, True).copy_(idx)
             feat = (t, c) + tuple(adapter.feature_shape((b,) + tuple(sample_shape)))
-            draw = lambda: torch.randn(feat, generator=generator, device=gdev)
-            model = draw() if adapter.noise_scale > 0.0 else None
-            guard_noise = draw() if guard.sigma > 0.0 else None
-        with span("fit.plan.copy"):
-            return SamplePlan(idx, model, guard_noise).to(device)
 
+            def normal():  # randn is empty().normal_(): the same kernel, the same bits
+                if pin:
+                    return _host_empty(feat, torch.get_default_dtype(), True).normal_(
+                        generator=generator)
+                return torch.randn(feat, generator=generator, device=gdev)
+
+            model = normal() if adapter.noise_scale > 0.0 else None
+            guard_noise = normal() if guard.sigma > 0.0 else None
+        return SamplePlan(idx, model, guard_noise)
+
+    def sample_plan(lens, sample_shape, generator: torch.Generator, device=None) -> SamplePlan:
+        device = resolve_device(device)
+        plan = draw(lens, sample_shape, generator)
+        with span("fit.plan.copy"):
+            return plan.to(device)
+
+    sample_plan.draw = draw
     return sample_plan
+
+
+# pinned plans a PlanPipeline holds ahead, at most
+PLAN_AHEAD_BYTES = 4 << 30
+
+
+def plans_cross(device) -> bool:
+    """Whether a plan drawn by a CPU generator has to cross to ``device``:
+    the gate of the engines' :class:`PlanPipeline`."""
+    return resolve_device(device).type != "cpu"
+
+
+class PlanPipeline:
+    """The plans of the epochs ahead, drawn on host worker threads while the
+    device runs the epoch at hand.
+
+    Each epoch's plan comes from its own generator (``SeedSequence((seed,
+    e))``), so the plans of epochs e + 1, e + 2, ... are independent and are
+    drawn at the same time on separate threads, bit for bit as on the
+    step's thread (torch releases the GIL inside the draws). A plan is
+    queued under its key (the seed, ``steps_per_epoch``, the shards'
+    lengths as host ints, the sample shape) and its epoch. ``take(key, e)``
+    hands over epoch e's draw if it is queued and drops every queued plan
+    that no longer lies ahead of it (another key, or an epoch outside the
+    lookahead after e); ``ahead`` then queues the next epochs. The
+    lookahead is as many plans as workers, within ``PLAN_AHEAD_BYTES`` of
+    them; a plan larger than that alone is never drawn ahead. Workers:
+    ``min(3, cores - 1)``, at least 1; the threads start at the first
+    ``ahead`` and stop, each after the draw it is in, when the pipeline is
+    dropped (a ``weakref.finalize``: a worker holds the draw and its
+    arguments, never the pipeline or its owner). A worker's exception is
+    raised by the ``Future.result()`` of the take that hands its plan
+    over; a dropped plan is never taken, so nothing reads its error."""
+
+    def __init__(self):
+        self.workers = max(1, min(3, len(os.sched_getaffinity(0)) - 1))
+        self._queued: Dict[Tuple[Any, int], Future] = {}
+        self._ahead = 0
+        self._pool: Optional[ThreadPoolExecutor] = None
+
+    def take(self, key, epoch: int) -> Optional[Future]:
+        """The queued draw of ``epoch``'s plan under ``key``, or ``None``."""
+        pending = self._queued.pop((key, epoch), None)
+        for k in [k for k in self._queued
+                  if k[0] != key or not epoch < k[1] <= epoch + self._ahead]:
+            self._queued.pop(k).cancel()
+        return pending
+
+    def ahead(self, key, epoch: int, draw, plan_bytes: int):
+        """Queue ``draw(e)`` for the epochs after ``epoch`` that the
+        lookahead holds and that are not queued yet."""
+        self._ahead = min(self.workers, PLAN_AHEAD_BYTES // max(plan_bytes, 1))
+        for e in range(epoch + 1, epoch + 1 + self._ahead):
+            if (key, e) not in self._queued:
+                self._queued[(key, e)] = self._executor().submit(draw, e)
+
+    def clear(self):
+        for pending in self._queued.values():
+            pending.cancel()
+        self._queued.clear()
+
+    @property
+    def threads(self):
+        return [] if self._pool is None else list(self._pool._threads)
+
+    def _executor(self) -> ThreadPoolExecutor:
+        if self._pool is None:
+            self._pool = ThreadPoolExecutor(self.workers, thread_name_prefix="plan-draw")
+            weakref.finalize(self, self._pool.shutdown, wait=False, cancel_futures=True)
+        return self._pool
 
 
 # ------------------------------------------------------------------ steps

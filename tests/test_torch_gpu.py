@@ -626,6 +626,44 @@ def test_llm_split_session_weights_are_the_cpus(cuda):
                for a, b in zip(tree_leaves(card.state), tree_leaves(cpu.state)))
 
 
+def test_plan_pipeline_on_the_card_draws_the_cpu_plans(cuda):
+    """A session on the card draws its plans ahead on worker threads into
+    pinned memory (``trainer.PlanPipeline``): bit for bit the plans a CPU
+    session draws inline, across fits and a change of steps a fit."""
+    from repro_torch.core import SplitSession, SplitTrainConfig
+    from repro_torch.core import session as session_mod
+
+    cfg = dataclasses.replace(COVID_CNN, input_hw=(16, 16), stages=((4, 1), (8, 1)),
+                              dense_units=(8,), privacy_noise=0.05)
+    tc = SplitTrainConfig(n_clients=3, data_shares=(0.7, 0.2, 0.1), server_batch=12,
+                          privacy=DPConfig(epsilon=4.0, clip_norm=1.0))
+    shards = split_clients(*make_covid_ct(60, hw=16, seed=0), shares=(0.7, 0.2, 0.1))
+    plans = {}
+    for dev in (cuda, "cpu"):
+        sess = SplitSession(cnn_adapter(cfg), tc, adamw(1e-2), seed=3, device=dev)
+        kept = plans.setdefault(str(dev), [])
+
+        def next_plan(*args, take=sess.engine._next_plan, kept=kept):
+            kept.append(take(*args))
+            return kept[-1]
+
+        sess.engine._next_plan = next_plan
+        for epochs, steps in ((1, 1), (1, 1), (2, 1), (1, 2), (1, 2)):
+            sess.fit(shards, epochs=epochs, steps_per_epoch=steps)
+        eng = sess.engine
+        if dev == "cpu":
+            assert (eng.plans_inline, eng.plans_ready + eng.plans_waited) == (6, 0)
+        else:
+            assert (eng.plans_inline, eng.plans_ready + eng.plans_waited) == (2, 4)
+            lens = [len(x) for x, _ in shards]
+            ahead = session_mod._draw_ahead(eng._plans[1], 3, lens, (16, 16, 1), 9)
+            assert ahead.model_noise.is_pinned() and ahead.guard_noise.is_pinned()
+    for got, want in zip(plans[str(cuda)], plans["cpu"], strict=True):
+        assert got.idx.is_cuda
+        for name in ("idx", "model_noise", "guard_noise"):
+            assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
 def _within_one_ulp(got, want, dtype):
     """|got - want| within one ulp of the half type (at the larger of the
     two values) beyond TOL: each side rounds a float32 value once, and the
