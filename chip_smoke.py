@@ -92,7 +92,11 @@ hubert-xlarge bidirectional with a ragged S, falcon-mamba-7b's scan), holds
 each output against its plain version on the card and small float32 and
 bfloat16 cases against the CPU, and times the attention cases (the bfloat16
 ones beside SDPA) and the scan, each tile or lane choice of a kernel against
-the one it beat.
+the one it beat. It then takes the scan on the training path at
+AI21-Jamba2-3B's mixer, ``[3, 8192, 5120, 16]`` with a float32 and a
+bfloat16 u (``scan_train``): ``SelectiveScan``'s forward, which writes the
+checkpoints, and its backward kernel, y and every gradient against autograd
+of the model's plain loop, each kernel timed against its least bytes.
 
 Then it drives the LM workload at llama3.2-1b's published width (16
 layers, d 2048, 32 heads over 8 kv heads, vocab 128,256), float32: the
@@ -324,6 +328,14 @@ LIB_TOL = dict(atol=3.2e-2, rtol=3.2e-2)
 # selective scan vs its plain version (tests/test_kernels.py:110): the sum
 # over the states in another order and expf's ulps, carried by the recurrence
 SCAN_TOL = dict(atol=1e-5, rtol=1e-4)
+# the scan's backward against autograd of the plain float32 loop, each
+# gradient in relative L2 (tests/test_torch_gpu.py): float32 sums in other
+# orders carried through the reverse recurrence, 1e-5; a bfloat16 u's
+# gradient is rounded to bfloat16, 4e-3 (one ulp)
+SCAN_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+# (batch, sequence) of the scan's training case at AI21-Jamba2-3B's mixer
+# (d_inner 5,120, d_state 16): its cell's three 8,192-token windows
+SCAN_TRAIN_CASE = (3, 8192)
 # (config, batch, sequence, dtypes) of the attention cases; the first dtype
 # of llama3.2-1b is the timed case. Each case runs in float32 too, where the
 # tolerance holds the mask, the window and the head dim tightly.
@@ -917,6 +929,91 @@ def scan_work(B, S, di, st) -> dict:
     # per state: dt*A, exp, dA*h, dtu*B, +, h*C and its sum; per channel:
     # dt*u, D*u, +
     return bound(nbytes, B * S * di * (8 * st + 3))
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def scan_train(dev, smi: str) -> dict:
+    """The scan on the training path at AI21-Jamba2-3B's mixer
+    (``SCAN_TRAIN_CASE``), u in float32 and in bfloat16: ``SelectiveScan``
+    (the forward that writes the checkpoints, then the backward kernel),
+    one launch each way read from the counters around the call, y and every
+    gradient against autograd of the model's plain loop (``ssm._ssm_scan``)
+    within ``SCAN_TOL`` and ``SCAN_GRAD_RTOL``; then both kernels timed
+    behind a spin kernel, their least bytes (``perfbench/work_lm.py``) as
+    the bound, and the plain loop's forward and backward timed once each
+    with the host feeding it (8,192 steps a pass)."""
+    from perfbench import work_lm
+    from repro_torch.configs.ai21_jamba2_3b import CONFIG
+    from repro_torch.models.ssm import _ssm_scan
+
+    Bsz, S = SCAN_TRAIN_CASE
+    di, st = CONFIG.d_inner, CONFIG.ssm_state
+    u32, dt, Bm, Cm, A, D = scan_inputs(Bsz, S, di, st, seed=21, dev=dev)
+    dt = dt * 0.1  # softplus(dt_proj(...) + log(expm1(0.01))) at init: ~0.01 to 0.1
+    dy = torch.randn(u32.shape, generator=torch.Generator(device=dev).manual_seed(22),
+                     device=dev)
+    out = {}
+    for udt in (torch.float32, torch.bfloat16):
+        tag = str(udt).split(".")[-1]
+        ins = [t.clone().requires_grad_() for t in (u32.to(udt), dt, Bm, Cm, A, D)]
+        torch.cuda.synchronize()
+        ss_ops.launches = ss_ops.backward_launches = 0
+        y = ss_ops.selective_scan(*ins)
+        got = torch.autograd.grad(y, ins, dy)
+        torch.cuda.synchronize()
+        launches = {"selective_scan": ss_ops.launches,
+                    "selective_scan_backward": ss_ops.backward_launches}
+        if launches != {"selective_scan": 1, "selective_scan_backward": 1}:
+            raise AssertionError(f"scan_train/{tag}: launches {launches}, want one each way")
+        if got[0].dtype != udt or any(g.dtype != torch.float32 for g in got[1:]):
+            raise AssertionError(f"scan_train/{tag}: gradient dtypes {[g.dtype for g in got]}")
+        args = [t.detach() for t in ins]
+        ref_in = [t.detach().float().requires_grad_() for t in args]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_y = _ssm_scan(*ref_in)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = torch.autograd.grad(want_y, ref_in, dy)
+        torch.cuda.synchronize()
+        plain_bwd_ms = (time.perf_counter() - t1) * 1e3
+        y_err = max_err(y.detach(), want_y.detach(), **SCAN_TOL, what=f"scan_train/{tag} y")
+        rel = {}
+        for name, a, b in zip(("du", "ddt", "dB", "dC", "dA", "dD"), got, want):
+            rel[name] = _rel_l2(a, b)
+            tol = SCAN_GRAD_RTOL[udt] if name == "du" else SCAN_GRAD_RTOL[torch.float32]
+            if not rel[name] <= tol:
+                raise AssertionError(f"scan_train/{tag}: {name} {rel[name]} > {tol}")
+        del ins, y, got, ref_in, want_y, want
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            _ssm_scan(args[0].float(), *args[1:])
+            torch.cuda.synchronize()
+            plain_fwd_ms = (time.perf_counter() - t2) * 1e3
+            _, hck = ss_ops._launch(*args, 128, 64, checkpoints=True)
+            fwd_ms = cuda_ms(lambda: ss_ops._launch(*args, 128, 64, checkpoints=True), iters=20)
+            bwd_ms = cuda_ms(lambda: ss_ops._launch_backward(*args, dy, hck), iters=10)
+        del hck
+        ub = args[0].element_size()
+        fwd = bound(int(work_lm.scan_forward_bytes(Bsz, S, di, st, ub, True)), 0)
+        bwd = bound(int(work_lm.scan_backward_bytes(Bsz, S, di, st, ub)), 0)
+        out[tag] = {
+            "shape": [Bsz, S, di, st], "launches": launches, "y_max_abs_err": y_err, **SCAN_TOL,
+            "grad_rel_l2": rel, "grad_rtol": {"du": SCAN_GRAD_RTOL[udt],
+                                              "rest": SCAN_GRAD_RTOL[torch.float32]},
+            "forward": {"ms": fwd_ms, "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+                        "bound_share": fwd["bound_ms"] / fwd_ms, "plain_ms": plain_fwd_ms,
+                        "plain_timer": "host_fed, one no-grad pass"},
+            "backward": {"ms": bwd_ms, "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+                         "bound_share": bwd["bound_ms"] / bwd_ms, "plain_ms": plain_bwd_ms,
+                         "plain_timer": "host_fed, one autograd backward of the plain loop"}}
+        del args
+        emit({"phase": "scan_train", "card": smi, "u_dtype": tag, **out[tag]})
+    return out
 
 
 def tree_diff(a, b) -> float:
@@ -2549,8 +2646,9 @@ LM_SPECS = {
                    dtype="bfloat16"),
     "moe": LMSpec("moe", "granite-moe-1b-a400m", seq=512, cpu_seq=128, n_layers=8,
                   cpu_budget_s=20.0, time_rounds=2),
-    # one step profiled: the scan's ~40,000 launches a step take the
-    # profiler's host side ~30 s a step to tabulate
+    # one step profiled (the plain scan's ~40,000 launches a step took the
+    # profiler's host side ~30 s a step to tabulate; since the mixers run
+    # the scan kernel on the card, a few dozen)
     "ssm": LMSpec("ssm", "falcon-mamba-7b", seq=256, cpu_seq=64, n_layers=8,
                   cpu_budget_s=20.0, time_rounds=2, remat=True,
                   profile_steps=1),
@@ -2604,10 +2702,26 @@ def spec_config(spec: LMSpec):
 
 
 def lm_kernel_counts() -> dict:
-    """The LM kernels' launch counters (the LM model calls neither: the
-    reference's runs its own XLA attention and SSM scan,
-    ``repro/models/attention.py:3-6``, ``repro/models/ssm.py:51-73``)."""
-    return {"flash_attention": fa_ops.launches, "selective_scan": ss_ops.launches}
+    """The LM kernels' launch counters. The LM model calls no attention
+    kernel (the reference runs its own XLA attention,
+    ``repro/models/attention.py:3-6``); its mamba mixers run the scan kernel
+    on the card (the port's counterpart of the one loop XLA makes of the
+    reference's ``lax.scan``, ``repro/models/ssm.py:51-73``): forward
+    launches, and the backward's (:func:`scan_launches`)."""
+    return {"flash_attention": fa_ops.launches, "selective_scan": ss_ops.launches,
+            "selective_scan_backward": ss_ops.backward_launches}
+
+
+def scan_launches(cfg, steps: int, n_clients: int = 3, remat: bool = False) -> dict:
+    """The scan kernel's launches in ``steps`` detached ``llm-split`` steps:
+    each hospital's forward of each mamba layer it holds (no gradient), the
+    trunk's forward of each of its mamba layers (again in the backward
+    pass with ``remat``) and their backwards."""
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    client = kinds[:cfg.cut_layers].count("ssm")
+    trunk = kinds[cfg.cut_layers:].count("ssm")
+    return {"selective_scan": steps * (n_clients * client + trunk * (2 if remat else 1)),
+            "selective_scan_backward": steps * trunk}
 
 
 def peak_gib() -> float:
@@ -2961,7 +3075,7 @@ def lm_train(dev, smi: str, tmp: str, spec: LMSpec) -> dict:
                 **{k: v - lm0[k] for k, v in lm_kernel_counts().items()}}
     (release,) = ran["dp_release"]["plans"]
     if (release["calls"] != n or launches != {"privacy_conv": 0, "flash_attention": 0,
-                                                "selective_scan": 0,
+                                                **scan_launches(sess.adapter.cfg, n),
                                                 "dp_release": n * release["plan"]["launches"]}):
         raise AssertionError(f"{spec.prefix}_train launches {ran}, want one dp_release call "
                              "a step")
@@ -3387,7 +3501,8 @@ def hybrid_phase(dev, smi: str) -> dict:
     (release,) = ran["dp_release"]["plans"]
     calls = release["calls"]
     losses = step_losses(sess)
-    if (calls != 1 or launches != {"privacy_conv": 0, "flash_attention": 0, "selective_scan": 0,
+    if (calls != 1 or launches != {"privacy_conv": 0, "flash_attention": 0,
+                                   **scan_launches(sess.adapter.cfg, 1),
                                    "dp_release": release["plan"]["launches"]}):
         raise AssertionError(f"hybrid_train launches {ran} {launches}, want one dp_release "
                              "call")
@@ -3824,7 +3939,8 @@ def lm_tp(dev, smi: str, tmp: str) -> dict:
                                  f"bytes, its trunk_specs share is {r['placed_trunk_bytes']}")
         # one release of the 3 clients' rows a rank, planned for those 3
         # rows: split rows (k = 44 on 132 SMs), so two launches
-        want = {"privacy_conv": 0, "flash_attention": 0, "selective_scan": 0, "dp_release": 2}
+        want = {"privacy_conv": 0, "flash_attention": 0, "selective_scan": 0,
+                "selective_scan_backward": 0, "dp_release": 2}
         if (r["dp_release_calls"] != 1 or r["launches"] != want
                 or r["dp_release_blocks_per_row"] != whole["blocks_per_row"]):
             raise AssertionError(f"lm_tp rank {r['rank']}: launches {r['launches']} in "
@@ -4458,11 +4574,16 @@ def main() -> None:
         t = timed[key]
         t["bound_share"] = t["bound_ms"] / t["ms"]
         emit({"phase": "time", "card": smi, **t})
+    del scan_in, scan_out
+    free_card()
+    # ---- scan_train: SelectiveScan's forward and backward at AI21-Jamba2-3B's
+    # mixer, float32 and bfloat16 u, against autograd of the plain loop
+    scan_trained = scan_train(dev, smi)
 
     # ==== the LM workload at llama3.2-1b's, granite-moe-1b-a400m's and
     # falcon-mamba-7b's published widths: decode, then split training; then
     # jamba's layer pattern at reduced widths
-    del attn, attn_out, scan_in, scan_out
+    del attn, attn_out
     lm_paths = {}
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         for prefix, spec in LM_SPECS.items():
@@ -4576,6 +4697,9 @@ def main() -> None:
             | {f"{p}_max_abs_err": errs[f"dp_release/{p}_cut"] for p in lm_paths}
             | {f"{p}_train_calls": out["train"]["calls"] for p, out in lm_paths.items()}
             if name == "dp_release" else {}),
+         # the scan on the training path at AI21-Jamba2-3B's mixer: the
+         # forward that writes the checkpoints and the backward, each u type
+         "training_path": scan_trained if name == "selective_scan" else None,
          # the half types (check only: the paths run float32)
          "half": [{k: t[k] for k in ("case", "dtype", "ms", "plain_ms", "bound_ms", "bound_by",
                                      "max_ulps")}

@@ -24,8 +24,9 @@ objects behind a ``FeatureQueue``, one trunk update a pop) and
 moment tree and their ``step`` counts server steps, FedAvg's ``opt`` is
 empty and its ``step`` counts rounds, as in the reference, so their
 checkpoints cross with the JAX package's, and ``llm-split``, the LM split
-workload (``core.distributed``) for the attention-only transformer
-families. ``audit_privacy`` runs the inversion attack (``privacy.audit``)
+workload (``core.distributed``) for the transformer families of
+``configs/``: dense, MoE, SSM and hybrid (the mamba mixers through the
+scan kernel and its backward on the card), audio and VLM. ``audit_privacy`` runs the inversion attack (``privacy.audit``)
 on a client's trained bank.
 
 ``mesh=`` takes a ``DeviceMesh`` from ``launch.mesh``: a 1-D client mesh
@@ -822,6 +823,11 @@ class LLMSplitEngine(_Engine):
     and moved to the engine's device, so one seed gives the same weights,
     plans and noise on the card and on the CPU.
 
+    Spans: ``fit.shards`` (the shards to the device), ``fit.plan`` (the
+    epoch's plan), and a step's ``fit.step`` around ``fit.grad`` (the
+    client stage, the release and the trunk's forward and backward) and
+    ``fit.update`` (the clip and the optimizer's update).
+
     On a sharded mesh (``core.distributed.is_sharded``: a model axis above
     1, or a production grid) the native state holds this rank's blocks
     (``llm_state_specs``): the flat buffer and its moments only the trunk's
@@ -889,7 +895,8 @@ class LLMSplitEngine(_Engine):
     def run(self, state, shards, *, epochs, steps_per_epoch, eval_fn=None):
         if len(shards) != self.tc.n_clients:
             raise ValueError(f"{len(shards)} shards for n_clients={self.tc.n_clients}")
-        data_x, data_y, _ = device_put_shards(shards, self.device)
+        with span("fit.shards"):
+            data_x, data_y, _ = device_put_shards(shards, self.device)
         lens, sample_shape = [len(x) for x, _ in shards], data_x.shape[2:]
         rows = torch.arange(self.tc.n_clients, device=self.device)[:, None]
         banks, flat, opt_state = state["client_banks"], state["flat"], state["opt"]
@@ -899,14 +906,17 @@ class LLMSplitEngine(_Engine):
             step, priv = state["step"], state["privacy"]
             ms = []
             for t in range(steps_per_epoch):
-                batch = {"tokens": data_x[rows, plan.idx[t]],
-                         "labels": data_y[rows, plan.idx[t]]}
-                g, m = self.parts.grad(
-                    flat, self._unravel, banks, batch,
-                    None if plan.model_noise is None else plan.model_noise[t],
-                    None if plan.guard_noise is None else plan.guard_noise[t])
-                m["grad_norm"] = self.parts.apply(flat, opt_state, step, g)
-                del g
+                with span("fit.step"):
+                    batch = {"tokens": data_x[rows, plan.idx[t]],
+                             "labels": data_y[rows, plan.idx[t]]}
+                    with span("fit.grad"):
+                        g, m = self.parts.grad(
+                            flat, self._unravel, banks, batch,
+                            None if plan.model_noise is None else plan.model_noise[t],
+                            None if plan.guard_noise is None else plan.guard_noise[t])
+                    with span("fit.update"):
+                        m["grad_norm"] = self.parts.apply(flat, opt_state, step, g)
+                    del g
                 step = step + 1
                 if self.guard.enabled:
                     priv = budget_advance(priv, self.tc.privacy)

@@ -40,6 +40,8 @@ _c_ptr, _c_int, _c_ll, _c_float = (ctypes.c_void_p, ctypes.c_int,
 # ``selective_scan_launch_lanes`` take as an argument, so that it can be
 # timed against another. The serving kernels' ``<name>_launch_plan`` takes
 # the plan that their wrappers choose (``conv_plan``, ``release_plan``).
+# ``selective_scan_fwd_launch`` adds u's type and the checkpoints that
+# ``selective_scan_bwd_launch``, the scan's backward, reads.
 SIGNATURES = {
     "privacy_conv": {"privacy_conv_launch_plan": (_c_ptr,) * 5 + (_c_int,) * 5
                      + (_c_float, _c_int, _c_int, _c_int, _c_ptr),
@@ -61,7 +63,9 @@ SIGNATURES = {
                                                                           _c_ptr)},
     "selective_scan": {
         "selective_scan_launch": (_c_ptr,) * 7 + (_c_int,) * 6 + (_c_ptr,),
-        "selective_scan_launch_lanes": (_c_ptr,) * 7 + (_c_int,) * 7 + (_c_ptr,)},
+        "selective_scan_launch_lanes": (_c_ptr,) * 7 + (_c_int,) * 7 + (_c_ptr,),
+        "selective_scan_fwd_launch": (_c_ptr,) * 8 + (_c_int,) * 8 + (_c_ptr,),
+        "selective_scan_bwd_launch": (_c_ptr,) * 14 + (_c_int,) * 6 + (_c_ptr,)},
 }
 
 _lock = threading.Lock()

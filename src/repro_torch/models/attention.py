@@ -11,6 +11,10 @@ heads grouped ``[KV, G]`` (head h reads kv head ``h // G``). With
 ``bf16_probs`` the PV product reads bfloat16 probabilities and values and
 is rounded to bfloat16 before it joins the float32 accumulator, as a JAX
 einsum of two bfloat16 operands returns bfloat16.
+
+RoPE rotates q and k unless the config's attention carries no positional
+encoding (``configs.jamba.uses_rope``: Jamba's), in training and decode
+alike.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.jamba import uses_rope
 from repro_torch.models.layers import apply_rope, dense_init
 from repro_torch.sharding.collectives import copy_to
 
@@ -47,14 +52,20 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dt
     return p
 
 
+def _rope(cfg: ModelConfig, t: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """``t`` ``[B, S, heads, hd]`` rotated by its positions, or as it is
+    where the config's attention has no positional encoding."""
+    return apply_rope(t, positions, cfg.rope_theta) if uses_rope(cfg) else t
+
+
 def _project_qkv(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
     B, S, _ = x.shape
     hd = cfg.head_dim
     q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
     if cfg.qkv_bias:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = apply_rope(q.reshape(B, S, cfg.n_heads, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
+    q = _rope(cfg, q.reshape(B, S, cfg.n_heads, hd), positions)
+    k = _rope(cfg, k.reshape(B, S, cfg.n_kv_heads, hd), positions)
     return q, k, v.reshape(B, S, cfg.n_kv_heads, hd)
 
 
@@ -135,7 +146,8 @@ def _rank_heads(params: dict, cfg: ModelConfig, x: torch.Tensor, positions, tp):
     ``[h_lo, h_hi)``; where they cut a head, q is gathered and the covering
     heads' columns taken. k and v are made whole (gathered where ``wk``
     shards, computed replicated where it does not): a rank's query heads
-    need their GQA group's kv head whole, and RoPE rotates whole heads.
+    need their GQA group's kv head whole, and RoPE (where the config has it)
+    rotates whole heads.
     Returns ``(q [B, S, Hc, hd], k, v [B, S, KV, hd], (h_lo, h_hi), (off,
     nq))``, ``off`` the rank's first column within the covering heads'
     output."""
@@ -155,8 +167,8 @@ def _rank_heads(params: dict, cfg: ModelConfig, x: torch.Tensor, positions, tp):
         return copy_to(y, tp.model)
 
     k, v = whole_kv("wk", "bk"), whole_kv("wv", "bv")
-    q = apply_rope(q.reshape(B, S, h_hi - h_lo, hd), positions, cfg.rope_theta)
-    k = apply_rope(k.reshape(B, S, KV, hd), positions, cfg.rope_theta)
+    q = _rope(cfg, q.reshape(B, S, h_hi - h_lo, hd), positions)
+    k = _rope(cfg, k.reshape(B, S, KV, hd), positions)
     return q, k, v.reshape(B, S, KV, hd), (h_lo, h_hi), (c0 - h_lo * hd, nq)
 
 

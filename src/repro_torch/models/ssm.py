@@ -3,14 +3,21 @@ layers), as ``repro.models.ssm``. Training and prefill run the selective
 scan over time; decode keeps an O(1) recurrent state (the conv ring and
 the ``[d_inner, d_state]`` SSM state).
 
-The reference's scan is XLA code (a ``lax.scan``, ``ssm.py:51-73``), not
-its Pallas kernel, so the port's is plain torch and never calls
-``kernels.selective_scan``: routing the model through the kernel would be
-a feature the reference lacks. The sequential scan is a Python loop over
-time; the associative variant is a log-depth doubling (Hillis-Steele) of
-the same composition, which the JAX package computes with
-``lax.associative_scan`` in another tree, so the two part by float32
-rounding.
+The reference's scan is XLA code (a ``lax.scan``, ``ssm.py:51-73``), which
+XLA compiles into one loop on the device. On the CPU the port's is plain
+torch, a Python loop over time, so the parity tests against the JAX package
+compare like with like; on the card the port's counterpart of that one loop
+is ``kernels.selective_scan`` (a CUDA kernel with a backward that
+recomputes the states from checkpoints), since a Python loop there is
+``S`` launches a layer and autograd would keep every step's state. The
+associative variant (``associative=True``, any device) is a log-depth
+doubling (Hillis-Steele) of the same composition, which the JAX package
+computes with ``lax.associative_scan`` in another tree, so the two part by
+float32 rounding. The scan runs in the span ``ssm.scan``.
+
+Jamba's mixer (``configs.jamba.mamba_inner_norm``) norms ``dt``, ``B`` and
+``C`` after ``x_proj`` with learned float32 weights (``dt_norm``,
+``B_norm``, ``C_norm``), in training and decode alike.
 
 Over the model axis (``tp``, a ``sharding.tensor_parallel.LMParallel``),
 the rank's shards follow one of the two placements: ``trunk_specs`` (the
@@ -34,8 +41,11 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common.tracing import span
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import dense_init
+from repro_torch.configs.jamba import mamba_inner_norm
+from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.models.layers import dense_init, rms_norm
 from repro_torch.sharding.collectives import copy_to, gather, reduce_from
 
 
@@ -45,11 +55,11 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -
     ``dt_bias = log(expm1(0.01))``, ``A_log = log(1..d_state)`` a channel,
     ``D = 1``, in float32 (torch's ``log`` parts from XLA's by an ulp at
     some integers, so a parity test carries the reference's across the
-    bridge)."""
+    bridge). Jamba's inner norms' weights are float32 ones."""
     d, di, st, dtr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
     dev = generator.device
     A = torch.arange(1, st + 1, dtype=torch.float32, device=dev)[None, :].repeat(di, 1)
-    return {
+    params = {
         "in_proj_u": dense_init(generator, d, (d, di), dtype),
         "in_proj_z": dense_init(generator, d, (d, di), dtype),
         "conv_w": dense_init(generator, cfg.ssm_conv, (di, cfg.ssm_conv), dtype),
@@ -62,6 +72,10 @@ def init_ssm(generator: torch.Generator, cfg: ModelConfig, dtype: torch.dtype) -
         "D": torch.ones((di,), dtype=torch.float32, device=dev),
         "out_proj": dense_init(generator, di, (di, d), dtype),
     }
+    if mamba_inner_norm(cfg):
+        for k, n in (("dt", dtr), ("B", st), ("C", st)):
+            params[f"{k}_norm"] = torch.ones((n,), dtype=torch.float32, device=dev)
+    return params
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -117,6 +131,17 @@ def _ssm_scan_associative(u, dt, B_t, C_t, A, D):
     return y + u * D[None, None]
 
 
+def _dt_b_c(params: dict, cfg: ModelConfig, proj: torch.Tensor):
+    """``x_proj``'s float32 output split into the softplus'd ``dt``
+    ``[..., di]``, ``B`` and ``C`` ``[..., st]``, each of the three normed
+    first where the config's mixer norms them."""
+    dt, B_t, C_t = torch.split(proj, [cfg.dt_rank, cfg.ssm_state, cfg.ssm_state], dim=-1)
+    if mamba_inner_norm(cfg):
+        dt, B_t, C_t = (rms_norm(t, params[f"{k}_norm"], cfg.norm_eps)
+                        for k, t in (("dt", dt), ("B", B_t), ("C", C_t)))
+    return F.softplus(dt @ params["dt_proj"].float() + params["dt_bias"]), B_t, C_t
+
+
 def _tp_mode(params: dict, cfg: ModelConfig, tp):
     """``None`` (whole), ``"gather"`` (only the input projections shard) or
     ``"channels"`` (every ``d_inner`` leaf shards)."""
@@ -128,7 +153,8 @@ def _tp_mode(params: dict, cfg: ModelConfig, tp):
 def ssm_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 associative: bool = False, tp=None) -> torch.Tensor:
     """x ``[B, S, d]`` -> ``[B, S, d]``: the projections in x's dtype, dt,
-    B, C and the scan in float32. ``tp``: see the module docstring."""
+    B, C and the scan in float32 (on the card the kernel, whose state is
+    float32, reads u in its dtype). ``tp``: see the module docstring."""
     mode = _tp_mode(params, cfg, tp)
     xin = x if mode is None else copy_to(x, tp.model)
     u = xin @ params["in_proj_u"]
@@ -139,12 +165,16 @@ def ssm_forward(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     proj = u @ params["x_proj"]
     if mode == "channels":  # x_proj row-parallel; B, C and dt feed the rank's channels
         proj = copy_to(reduce_from(proj, tp.model), tp.model)
-    proj = proj.float()
-    dt, B_t, C_t = torch.split(proj, [cfg.dt_rank, cfg.ssm_state, cfg.ssm_state], dim=-1)
-    dt = F.softplus(dt @ params["dt_proj"].float() + params["dt_bias"])
+    dt, B_t, C_t = _dt_b_c(params, cfg, proj.float())
     A = -torch.exp(params["A_log"])
-    scan = _ssm_scan_associative if associative else _ssm_scan
-    y = scan(u.float(), dt, B_t, C_t, A, params["D"])
+    with span("ssm.scan"):
+        if associative:
+            y = _ssm_scan_associative(u.float(), dt, B_t, C_t, A, params["D"])
+        elif u.is_cuda:  # the kernel reads a bfloat16 u as it is
+            y = selective_scan(u if u.dtype == torch.bfloat16 else u.float(), dt, B_t, C_t, A,
+                               params["D"])
+        else:
+            y = _ssm_scan(u.float(), dt, B_t, C_t, A, params["D"])
     out = y.to(x.dtype) * F.silu(z)
     if mode == "channels":
         out = gather(out, tp.model, out.dim() - 1)
@@ -182,9 +212,7 @@ def ssm_decode_step(params: dict, cfg: ModelConfig, x: torch.Tensor,
     proj = u_c @ params["x_proj"].to(u_c.dtype)
     if mode == "channels":
         proj = tp.model.all_reduce(proj)
-    proj = proj.float()
-    dt, B_t, C_t = torch.split(proj, [cfg.dt_rank, cfg.ssm_state, cfg.ssm_state], dim=-1)
-    dt = F.softplus(dt @ params["dt_proj"].float() + params["dt_bias"])
+    dt, B_t, C_t = _dt_b_c(params, cfg, proj.float())
     A = -torch.exp(params["A_log"])
     dA = torch.exp(dt[..., None] * A[None])  # [B, di, st]
     h = dA * state["h"] + (dt * u_c.float())[..., None] * B_t[:, None, :]

@@ -17,10 +17,13 @@ layer) and the server (``prefix`` blocks, the scanned ``groups`` with every
 leaf stacked ``[n_groups, ...]`` under ``pos{p}``, the final norm and an
 untied head). The reference scans the groups; here a Python loop over g
 indexes the stacked leaves, so autograd accumulates into the stacked
-tensors; with ``ModelOptions.remat`` each group's body runs under
-``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of the
-scanned body), so a group's activations are recomputed in the backward
-pass.
+tensors; with ``ModelOptions.remat`` every server block, the prefix's and
+each group's, runs under ``torch.utils.checkpoint``, so only the blocks'
+inputs are kept and a block's activations are recomputed in the backward
+pass, one block at a time (the reference's ``jax.checkpoint`` takes the
+scanned group's body whole; a block is finer, which a long period needs,
+as Jamba2's 14 blocks a group beside a prefix of 13, and the gradient is
+the same, bit for bit).
 
 The reference's sharding annotations are GSPMD constraints; here ``tp``
 (a ``sharding.tensor_parallel.LMParallel``) carries the model axis, and
@@ -53,7 +56,7 @@ PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 class ModelOptions:
     """Execution knobs (perf levers); the model's math is the same across
     their values: ``associative_scan`` (the SSM's parallel-prefix scan, its
-    sums in another order), ``remat`` (each group recomputed in the
+    sums in another order), ``remat`` (each server block recomputed in the
     backward pass; the same gradient, bit for bit) and ``moe_chunks`` (each
     of that many token chunks dispatched on its own, as the reference's
     path without a mesh)."""
@@ -63,7 +66,7 @@ class ModelOptions:
     skip_masked_blocks: bool = False  # causal two-phase FLOP skip (fwd-only)
     bf16_probs: bool = False  # bf16 attention probabilities for the PV matmul
     associative_scan: bool = False  # parallel-prefix SSM scan
-    remat: bool = False  # checkpoint each group in the backward pass
+    remat: bool = False  # checkpoint each server block in the backward pass
     detach_cut: bool = True  # the paper's temporal split: no grads into the client
     logits_f32: bool = True
     moe_chunks: int = 1  # per-chunk MoE dispatch
@@ -309,22 +312,23 @@ def server_forward(server_params: dict, cfg: ModelConfig, h: torch.Tensor,
     n_client, n_prefix, n_groups = stack_split(cfg)
     period = period_of(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def block(blk, layer_idx, hh):
+        return apply_block(blk, cfg, layer_idx, hh, positions, opts, tp)
+
+    def run(blk, layer_idx, hh):
+        if opts.remat:
+            return checkpoint(block, blk, layer_idx, hh, use_reentrant=False)
+        return block(blk, layer_idx, hh)
+
     for j, blk in enumerate(server_params["prefix"]):
-        h, a = apply_block(blk, cfg, n_client + j, h, positions, opts, tp)
+        h, a = run(blk, n_client + j, h)
         aux = aux + a
     start = n_client + n_prefix
-
-    def group_body(hh, aa, grp):
-        for p in range(period):
-            hh, a = apply_block(grp[f"pos{p}"], cfg, start + p, hh, positions, opts, tp)
-            aa = aa + a
-        return hh, aa
-
     for grp in (_per_group(server_params["groups"]) if n_groups > 0 else []):
-        if opts.remat:
-            h, aux = checkpoint(group_body, h, aux, grp, use_reentrant=False)
-        else:
-            h, aux = group_body(h, aux, grp)
+        for p in range(period):
+            h, a = run(grp[f"pos{p}"], start + p, h)
+            aux = aux + a
     h = rms_norm(h, server_params["final_norm"], cfg.norm_eps)
     head = tied_embed.T if cfg.tie_embeddings else server_params["lm_head"]
     logits = _head(h, head, cfg, tp)

@@ -11,7 +11,8 @@ sums in another order); in bfloat16 atol 2e-3, rtol 1.6e-2, two bfloat16 ulps
 (both sides compute in float32 and round the output to bfloat16, so they
 differ where the float32 values straddle a rounding boundary); the scan atol
 1e-5, rtol 1e-4 (tests/test_kernels.py:110; the sum over states in another
-order, through the recurrence).
+order, through the recurrence); the scan's backward ``SCAN_GRAD_RTOL`` in
+relative L2 (see there).
 """
 import dataclasses
 
@@ -40,6 +41,13 @@ TOL = dict(atol=1e-5, rtol=1e-5)
 ATTN_TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
             torch.bfloat16: dict(atol=2e-3, rtol=1.6e-2)}
 SCAN_TOL = dict(atol=1e-5, rtol=1e-4)
+# the scan's backward against autograd of a plain float32 scan, each
+# gradient in relative L2: float32 sums in other orders (over the 16 states,
+# over the channels for dB and dC, over time and the batch for dA and dD)
+# carried through the reverse recurrence, 1e-5 (what was seen is ~1e-7); a
+# bfloat16 u's gradient is rounded to bfloat16, whose half ulp is 2^-9
+# relative, ~1.1e-3 in relative L2 over many elements: 4e-3 (one ulp)
+SCAN_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
 
 
 @pytest.fixture
@@ -251,14 +259,20 @@ def test_lm_kernels_are_forward_only_and_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa_ops.flash_attention(*(torch.randn(1, 8, 2, 64, device=cuda).half()
                                  for _ in range(3)))
+    # the scan has a backward kernel: under grad it takes SelectiveScan
     u = torch.randn(1, 4, 8, device=cuda, requires_grad=True)
     rest = (torch.rand(1, 4, 8, device=cuda), torch.randn(1, 4, 2, device=cuda),
             torch.randn(1, 4, 2, device=cuda), -torch.ones(8, 2, device=cuda),
             torch.ones(8, device=cuda))
-    with pytest.raises(RuntimeError, match="forward only"):
-        ss_ops.selective_scan(u, *rest)
+    y = ss_ops.selective_scan(u, *rest)
+    assert y.grad_fn is not None and y.grad_fn.name() == "SelectiveScanBackward"
     with pytest.raises(ValueError, match="float32"):
         ss_ops.selective_scan(u.detach().double(), *rest)
+    wide = (torch.rand(1, 4, 8, device=cuda), torch.randn(1, 4, 20, device=cuda),
+            torch.randn(1, 4, 20, device=cuda), -torch.ones(8, 20, device=cuda),
+            torch.ones(8, device=cuda))
+    with pytest.raises(ValueError, match="d_state <= 16"):  # the backward's lanes
+        ss_ops.selective_scan(u, *wide)
 
 
 def _attention_case(g, B, S, H, KV, hd, dtype):
@@ -325,6 +339,103 @@ def test_selective_scan_lanes_and_states(cuda, st, lanes):
         got = ss_ops._launch(u, dt, B, C, A, D, 48, 8, lanes=lanes)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, selective_scan_ref(u, dt, B, C, A, D), **SCAN_TOL)
+
+
+def _scan_case(g, Bsz, S, di, st, dev, init_a=True):
+    u = _randn(g, Bsz, S, di).to(dev)
+    dt = torch.nn.functional.softplus(_randn(g, Bsz, S, di) * 0.5 - 1).to(dev)
+    B, C = _randn(g, Bsz, S, st).to(dev), _randn(g, Bsz, S, st).to(dev)
+    if init_a:  # init_ssm's A and D
+        A = -torch.arange(1, st + 1, dtype=torch.float32, device=dev)[None].repeat(di, 1)
+        D = torch.ones(di, device=dev)
+    else:
+        A = -torch.exp(_randn(g, di, st, scale=0.3)).to(dev)
+        D = _randn(g, di).to(dev)
+    return u, dt, B, C, A, D
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("Bsz,S,di,st,init_a", [
+    (2, 64, 64, 16, True),     # whole chunks of 32 steps
+    (1, 37, 40, 16, False),    # a ragged last chunk; di off the block's 32 channels
+    (3, 100, 130, 5, False),   # st 5: lanes past st; four tiles of channels
+    (1, 1, 8, 1, True)])       # one step, one state
+@pytest.mark.parametrize("udtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_backward_against_autograd(cuda, Bsz, S, di, st, init_a, udtype):
+    """``SelectiveScan``: y as the forward without checkpoints, bit for bit;
+    each of du, d(dt), dB, dC, dA and dD against autograd of
+    ``selective_scan_ref`` within ``SCAN_GRAD_RTOL``; one launch each way."""
+    g = torch.Generator().manual_seed(S * 7 + st)
+    u, dt, B, C, A, D = _scan_case(g, Bsz, S, di, st, cuda, init_a)
+    u = u.to(udtype)
+    dy = _randn(g, Bsz, S, di).to(cuda)
+    with torch.no_grad():
+        plain_y = ss_ops.selective_scan(u, dt, B, C, A, D)
+    ins = [t.clone().requires_grad_() for t in (u, dt, B, C, A, D)]
+    f0, b0 = ss_ops.launches, ss_ops.backward_launches
+    y = ss_ops.selective_scan(*ins)
+    got = torch.autograd.grad(y, ins, dy)
+    torch.cuda.synchronize()
+    assert (ss_ops.launches - f0, ss_ops.backward_launches - b0) == (1, 1)
+    assert torch.equal(y, plain_y)
+    ref_in = [t.clone().float().requires_grad_() for t in (u, dt, B, C, A, D)]
+    want_y = selective_scan_ref(*ref_in)
+    want = torch.autograd.grad(want_y, ref_in, dy)
+    torch.testing.assert_close(y, want_y, **SCAN_TOL)
+    assert got[0].dtype == udtype and all(a.dtype == torch.float32 for a in got[1:])
+    for name, a, b in zip(("du", "ddt", "dB", "dC", "dA", "dD"), got, want):
+        tol = SCAN_GRAD_RTOL[udtype] if name == "du" else SCAN_GRAD_RTOL[torch.float32]
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
+
+
+def _plain_scan_grads(u, dt, B, C, A, D, dy):
+    """Autograd of the model's plain float32 scan (``ssm._ssm_scan``, which
+    unbinds its inputs along time once: ``selective_scan_ref`` indexes
+    ``dA[:, t]``, whose backward writes a whole ``[Bsz, S, di, st]`` tensor a
+    step, out of reach at 8,192 steps)."""
+    from repro_torch.models.ssm import _ssm_scan
+
+    ins = [t.detach().float().requires_grad_() for t in (u, dt, B, C, A, D)]
+    y = _ssm_scan(*ins)
+    return y.detach(), torch.autograd.grad(y, ins, dy)
+
+
+@pytest.mark.parametrize("S", [8192, 1237])
+@pytest.mark.parametrize("udtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_backward_at_jamba2_3b_width(cuda, S, udtype):
+    """The backward at AI21-Jamba2-3B's mixer: ``[3, S, 5120, 16]`` (the
+    cell's 8,192-token windows of three hospitals, and an odd length), A
+    and D as ``init_ssm`` makes them, against autograd of the plain scan,
+    within ``SCAN_GRAD_RTOL``; the checkpoints equal the plain scan's
+    states at every 32nd step."""
+    from repro_torch.configs.ai21_jamba2_3b import CONFIG
+
+    g = torch.Generator().manual_seed(S)
+    u, dt, B, C, A, D = _scan_case(g, 3, S, CONFIG.d_inner, CONFIG.ssm_state, cuda)
+    dt = dt * 0.1  # softplus(dt_proj(...) + log(expm1(0.01))) at init: ~0.01 to 0.1
+    u = u.to(udtype)
+    dy = torch.randn(u.shape, generator=g).to(cuda)
+    ins = [t.clone().requires_grad_() for t in (u, dt, B, C, A, D)]
+    y = ss_ops.selective_scan(*ins)
+    got = torch.autograd.grad(y, ins, dy)
+    with torch.no_grad():  # the states entering each chunk, stepped plainly
+        _, hck = ss_ops._launch(u, dt, B, C, A, D, 128, 64, checkpoints=True)
+        h = torch.zeros((3, CONFIG.d_inner, CONFIG.ssm_state), device=cuda)
+        uf = u.float()
+        for t in range(S):
+            if t % ss_ops.CHECKPOINT_STEPS == 0:
+                torch.testing.assert_close(hck[:, t // ss_ops.CHECKPOINT_STEPS], h)
+            h = (torch.exp(dt[:, t, :, None] * A[None]) * h
+                 + (dt[:, t] * uf[:, t])[..., None] * B[:, t, None, :])
+    del hck, h, uf
+    want_y, want = _plain_scan_grads(u, dt, B, C, A, D, dy)
+    torch.testing.assert_close(y.detach(), want_y, **SCAN_TOL)
+    for name, a, b in zip(("du", "ddt", "dB", "dC", "dA", "dD"), got, want):
+        tol = SCAN_GRAD_RTOL[udtype] if name == "du" else SCAN_GRAD_RTOL[torch.float32]
+        assert _rel(a, b) <= tol, (name, _rel(a, b))
 
 
 def test_redesigned_kernels_refuse_what_they_do_not_take(cuda):
